@@ -7,18 +7,28 @@ Run from the root of a checkout, with no arguments:
 
 Phases, one JSON line each:
   env     the card's name, count and power limit (nvidia-smi);
-  build   nvcc builds every kernel of the path from csrc/ (seconds, ptxas
-          registers and shared memory);
+  build   nvcc builds every kernel of the paths from csrc/, one nvcc per
+          source, all at once (seconds, ptxas registers and shared memory);
   kernel  each kernel against its plain PyTorch version on the card, at the
-          shapes of the path and beyond, with its time, the plain version's
-          time, a dense library yardstick's time and its roofline bound;
+          shapes of the paths and beyond (a gradient row by row, each row
+          within 1e-3 of its own norm, with planted faults the check must
+          reject), with its time, the plain version's time, a dense library
+          yardstick's time and its roofline bound;
   slice   the serving path at full width — 128 six-second utterances through
           wav_to_train_feats → ResNet-34 SpeakerModel (7325-speaker AAM head,
           seeded random weights) → extract_embeddings → the flash eval step →
           cosine_scores → compute_eer — with its launch counts and checks;
   profile the device and wall time of the slice's stages (frontend, bf16
           embedding, flash eval step) and their longest kernels;
-  kernels every kernel with its launches on the slice and its errors.
+  train   the training path at full width — ResNet-34, B=256 synthetic
+          200-frame crops, 7325 speakers, bf16 trunk — through
+          make_train_step (flash head, then dense head) and one epoch of
+          train_and_validate, with its launch counts, checks (the loss falls,
+          flash and dense steps agree), train examples/s, ms/step and
+          conv-MFU;
+  train_profile  the device and wall time of one train step per head and
+          its longest kernels;
+  kernels every kernel with its launches on the paths and its errors.
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
 or outside a checkout, it fails at once and prints no result.
@@ -32,15 +42,20 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, dense bf16 on the
+# tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+KERNELS = ("flash_aam_fwd", "flash_aam_bwd")
 
 SECONDS = 6.0
 RATE = 16000
 N_SAMPLES = int(SECONDS * RATE)
 BATCH = 128
 SPK = 7325
+TRAIN_B = 256
+TRAIN_T = 200  # the recipe's training crop
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -121,6 +136,38 @@ def flash_bound(B, C, D):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def flash_bwd_bound(B, C, D):
+    """Least time for (dê, dW): 6·B·C·D f32 operations (the cosine product,
+    a·ŵ and aᵀe) against reading e, W, labels, lse, g once and writing dê
+    and dW."""
+    flops = 6.0 * B * C * D
+    nbytes = 4.0 * (2 * (B * D + C * D) + 3 * B)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def resnet34_train_flops(batch, feat_dim, frames):
+    """Conv FLOPs of one ResNet-34 AAM training step (fwd + bwd ≈ 3× fwd,
+    matmul/conv MACs only): a copy of bench.py's formula for the flagship
+    geometry (3×3 stem to 32 channels, stages 32/64/128/256 × 3/4/6/3
+    blocks, strides 1/2/2/2, fc1 and the 7325-class head)."""
+    h, w = feat_dim, frames
+    flops = 2 * 1 * 32 * 9 * h * w  # stem
+    cin = 32
+    for c, n, s in ((32, 3, 1), (64, 4, 2), (128, 6, 2), (256, 3, 2)):
+        h, w = -(-h // s), -(-w // s)
+        for j in range(n):
+            c_in = cin if j == 0 else c
+            flops += 2 * 9 * c_in * c * h * w   # conv1
+            flops += 2 * 9 * c * c * h * w      # conv2
+            if j == 0 and (s != 1 or c_in != c):
+                flops += 2 * c_in * c * h * w   # 1×1 downsample
+            cin = c
+    flops += 2 * (5 * 2 * 256) * 256
+    flops += 2 * 256 * 7325
+    return 3.0 * batch * flops
+
+
 def phase_env(torch):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -137,10 +184,13 @@ def phase_build():
     from pkr_tpu_torch.ops import _native
 
     t0 = time.perf_counter()
-    _native.load("flash_aam_fwd")
-    info = _native.BUILD_INFO["flash_aam_fwd"]
-    emit({"phase": "build", "kernel": "flash_aam_fwd", "seconds": info["seconds"],
-          "wall_seconds": time.perf_counter() - t0, "ptxas": info["ptxas"]})
+    _native.build_all(KERNELS)
+    wall = time.perf_counter() - t0
+    for name in KERNELS:
+        _native.load(name)
+        info = _native.BUILD_INFO[name]
+        emit({"phase": "build", "kernel": name, "seconds": info["seconds"],
+              "wall_seconds_all": wall, "ptxas": info["ptxas"]})
 
 
 def _flash_inputs(torch, B, C, D, seed, saturated=False):
@@ -228,6 +278,109 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
     return row
 
 
+BWD_KERNELS = ("bwd_dw_kernel", "bwd_de_partial_kernel", "bwd_de_sum_kernel")
+ROW_TOL = 1e-3
+
+
+def row_rel_err(torch, got, ref):
+    """max over rows r of ‖got_r − ref_r‖ / ‖ref_r‖ (in f64), where a row is
+    one class of a weight gradient or one example of an embedding gradient.
+    Each row is held to its own scale: a non-target class's gradient is
+    orders of magnitude below a target class's, so a bound on the whole
+    tensor's largest entry cannot see it.  A row whose reference is 0 must
+    be 0."""
+    num = (got.double() - ref.double()).norm(dim=1)
+    den = ref.double().norm(dim=1)
+    rel = torch.where(den > 0, num / den.clamp_min(1e-300),
+                      torch.where(num > 0, float("inf"), 0.0))
+    return float(rel.max())
+
+
+def planted_faults(torch, got, ref, labels=None):
+    """The faults the row check must reject, as {name: (row error, whether
+    the whole-tensor check max|Δ| ≤ 1e-3·max|ref| + 1e-6 would pass it)}:
+    the smallest non-zero row off by 3·ROW_TOL of itself and, for a weight
+    gradient (`labels` given), every class that is no example's target
+    zeroed, as a kernel that wrote only the one-hot term would."""
+    faults = {}
+    small = ref.double().norm(dim=1)
+    small = torch.where(small > 0, small, float("inf")).argmin()
+    f = got.clone()
+    f[small] *= 1.0 + 3 * ROW_TOL
+    faults["smallest_row_off"] = f
+    if labels is not None:
+        f = got.clone()
+        keep = torch.zeros(got.shape[0], dtype=torch.bool, device=got.device)
+        keep[labels] = True
+        f[~keep] = 0.0
+        faults["non_target_rows_zeroed"] = f
+    scale = float(ref.abs().max())
+    return {k: (row_rel_err(torch, f, ref),
+                float((f - ref).abs().max()) <= 1e-3 * scale + 1e-6)
+            for k, f in faults.items()}
+
+
+def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True):
+    """flash_aam_bwd against flash_aam_bwd_plain, on dê and on dW: every row
+    within ROW_TOL of its own norm (row_rel_err), and max|Δ| ≤
+    1e-3·max|ref| + 1e-6 over the tensor (the kernel and cuBLAS sum in
+    different orders, and dz/dcos magnifies cosine rounding near cos = ±1).
+    Planted faults in the kernel's output must fail the row check."""
+    from pkr_tpu_torch.ops import flash_aam as fa
+
+    emb, w, labels = _flash_inputs(torch, B, C, D, seed, saturated)
+    e_hat, _ = fa._normalize(emb)
+    zt = fa._margined_target_z(e_hat, w, labels, 0.2, 30.0)
+    lse = fa.flash_aam_fwd(e_hat, w, labels, zt)[0]
+    g = torch.full((B,), 1.0 / B, device=emb.device)
+    got = fa.flash_aam_bwd(e_hat, w, labels, lse, g)
+    torch.cuda.synchronize()
+    ref = fa.flash_aam_bwd_plain(e_hat, w, labels, lse, g)
+    row = {"phase": "kernel", "kernel": "flash_aam_bwd", "case": name, "B": B, "C": C,
+           "D": D, "tol": {"row_rel": ROW_TOL, "max_abs": "1e-3*max|ref| + 1e-6"}}
+    for tag, gt, r, lab in (("de", got[0], ref[0], None), ("dw", got[1], ref[1], labels)):
+        err, scale = float((gt - r).abs().max()), float(r.abs().max())
+        rel = row_rel_err(torch, gt, r)
+        norms = r.double().norm(dim=1)
+        row[f"max_abs_err_{tag}"], row[f"max_abs_{tag}"] = err, scale
+        row[f"row_rel_err_{tag}"] = rel
+        row[f"row_norm_range_{tag}"] = [float(norms.min()), float(norms.max())]
+        check(bool(torch.isfinite(gt).all()), f"{name}: non-finite {tag}")
+        check(rel <= ROW_TOL, f"{name}: {tag} row error {rel} (whole-tensor error {err} "
+                              f"against scale {scale})")
+        check(err <= 1e-3 * scale + 1e-6, f"{name}: {tag} error {err} against scale {scale}")
+        faults = planted_faults(torch, gt, r, lab)
+        row[f"planted_{tag}"] = {k: {"row_rel_err": v[0], "whole_tensor_check_passes": v[1]}
+                                 for k, v in faults.items()}
+        for k, (f_rel, _) in faults.items():
+            check(f_rel > ROW_TOL, f"{name}: the row check missed the planted {tag} fault {k}")
+    if timed:
+        from pkr_tpu_torch.ops.aam import aam_logits
+
+        # the dense head's backward (cuBLAS f32) for the same loss Σ g·CE,
+        # its graph built once: each call runs the backward alone
+        e_d = e_hat.clone().requires_grad_(True)
+        w_d = w.clone().requires_grad_(True)
+        logp = torch.log_softmax(aam_logits(e_d, w_d, labels), dim=1)
+        dense_loss = -torch.sum(g * logp.gather(1, labels[:, None])[:, 0])
+
+        def dense_bwd():
+            return torch.autograd.grad(dense_loss, (e_d, w_d), retain_graph=True)
+
+        iters = max(3, min(30, int(1e11 / (B * C * D))))
+        for tag, fn, only in (
+                ("kernel", lambda: fa.flash_aam_bwd(e_hat, w, labels, lse, g), BWD_KERNELS),
+                ("plain", lambda: fa.flash_aam_bwd_plain(e_hat, w, labels, lse, g), None),
+                ("library", dense_bwd, None)):
+            row[f"{tag}_ms"], row[f"{tag}_device_kernels_per_call"], _ = device_ms(
+                torch, fn, iters, only)
+            row[f"{tag}_call_ms"] = call_ms(torch, fn, iters)
+        check(row["kernel_ms"] is not None, f"{name}: the trace shows no kernel time")
+        row["bound_ms"], row["bound_by"] = flash_bwd_bound(B, C, D)
+    emit(row)
+    return row
+
+
 def phase_kernel(torch):
     D = 256
     cases = [("slice_eval", BATCH, SPK, True), ("path_b256", 256, SPK, True),
@@ -237,7 +390,13 @@ def phase_kernel(torch):
             for i, (name, B, C, timed) in enumerate(cases)]
     rows.append(check_flash_case(torch, "saturated", 4, 300, D, seed=9, saturated=True,
                                  timed=False))
-    return rows
+    bwd_cases = [("train_b256", TRAIN_B, SPK, True), ("path_b1024", 1024, SPK, True),
+                 ("scale_c131072", 256, 131072, True), ("ragged", 100, 7001, True)]
+    bwd_rows = [check_flash_bwd_case(torch, name, B, C, D, seed=20 + i, timed=timed)
+                for i, (name, B, C, timed) in enumerate(bwd_cases)]
+    bwd_rows.append(check_flash_bwd_case(torch, "saturated", 4, 300, D, seed=29,
+                                         saturated=True, timed=False))
+    return rows, bwd_rows
 
 
 def phase_slice(torch, smi_line):
@@ -357,6 +516,167 @@ def phase_slice(torch, smi_line):
     return launches
 
 
+class _Loader:
+    """Duck-typed loader for train_and_validate: the same batches each epoch."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def epoch(self, epoch):
+        return iter(self.batches)
+
+
+def _median_step_ms(torch, step, state, x, y, lr, windows=3, steps=4):
+    """Median over `windows` of the mean wall ms per step of `steps` back-to-back
+    train steps, ended by a synchronize."""
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, x, y, lr)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0) / steps)
+    return float(np.median(times)), times, m
+
+
+def phase_train(torch, smi_line):
+    import io
+
+    from pkr_tpu_torch.models import SpeakerModel
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.ops.aam import aam_logits
+    from pkr_tpu_torch.train import (cosine_epoch_lr, create_train_state, cross_entropy,
+                                     make_train_step, train_and_validate)
+    from pkr_tpu_torch.utils import ProgressLogger
+
+    dev = torch.device("cuda")
+    torch.manual_seed(1)
+    model = SpeakerModel(SPK, 40, "mean+std", "AAM", trunk="resnet34",
+                         dtype=torch.bfloat16, device=dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((TRAIN_B, 40, TRAIN_T), generator=gen, device=dev)
+    y = torch.randint(0, SPK, (TRAIN_B,), generator=gen, device=dev)
+    x_cv = torch.randn((TRAIN_B, 40, TRAIN_T), generator=gen, device=dev)
+    lr = cosine_epoch_lr(0.1, 10)(0)
+    flash_step = make_train_step(model, flash_aam=True)
+    dense_step = make_train_step(model)
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- the main path, with every kernel count at 0 just before it ---
+    fa.flash_aam_fwd.launches = 0
+    fa.flash_aam_bwd.launches = 0
+    t0 = time.perf_counter()
+    state = create_train_state(model)
+    flash_losses = []
+    for _ in range(10):  # one fixed batch: the loss must fall
+        state, m = flash_step(state, x, y, lr)
+        flash_losses.append(m["loss"])
+    dense_losses = []
+    for _ in range(3):
+        state, m = dense_step(state, x, y, lr)
+        dense_losses.append(m["loss"])
+    epochs = []
+    state = train_and_validate(
+        model, state, _Loader([(x, y)] * 3), _Loader([(x_cv, y)]), epochs=1, lr0=lr,
+        flash_aam=True, logger=ProgressLogger(io.StringIO()),
+        on_epoch_end=lambda s, e, mt: epochs.append(mt))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {"flash_aam_fwd": fa.flash_aam_fwd.launches,
+                "flash_aam_bwd": fa.flash_aam_bwd.launches}
+    # --- end of the main path ---
+
+    flash_losses = [float(v) for v in flash_losses]
+    dense_losses = [float(v) for v in dense_losses]
+    check(np.isfinite(flash_losses + dense_losses).all(),
+          f"non-finite train loss {flash_losses} {dense_losses}")
+    check(flash_losses[-1] < flash_losses[0], f"the loss did not fall: {flash_losses}")
+    check(launches["flash_aam_bwd"] > 0, "the flash train path never launched flash_aam_bwd")
+    check(launches["flash_aam_fwd"] > 0, "the flash train path never launched flash_aam_fwd")
+    check(int(state.step) == 16 and state.epoch == 1, f"step {int(state.step)}, "
+                                                      f"epoch {state.epoch}")
+    check(len(epochs) == 1 and np.isfinite(epochs[0]["loss"]), f"cv {epochs}")
+
+    # one flash step and one dense step from the same weights agree; the
+    # head's gradients are compared on one embedding batch (cuDNN's backward
+    # is not deterministic, so trunk parameters are not compared bit for
+    # bit), each row of them within ROW_TOL of its own norm
+    agree = {}
+    for tag, step in (("flash", flash_step), ("dense", dense_step)):
+        model.load_state_dict(init)
+        _, m = step(create_train_state(model), x, y, lr)
+        agree[f"{tag}_loss"] = float(m["loss"])
+    check(abs(agree["flash_loss"] - agree["dense_loss"]) <= 2e-4,
+          f"flash vs dense step loss {agree}")
+    model.load_state_dict(init)
+    model.train()
+    with torch.no_grad():
+        emb = model.head_input(x)
+    grads = {}
+    for tag in ("flash", "dense"):
+        e = emb.detach().clone().requires_grad_(True)
+        w = model.last.weight.detach().clone().requires_grad_(True)
+        if tag == "flash":
+            loss = fa.flash_aam_loss(e, w, y, model.m, model.s)
+        else:
+            loss = cross_entropy(aam_logits(e, w, y, model.m, model.s), y)
+        grads[tag] = torch.autograd.grad(loss, (e, w))
+    for i, tag in enumerate(("emb", "last_weight")):
+        got, ref = grads["flash"][i], grads["dense"][i]
+        rel = row_rel_err(torch, got, ref)
+        agree[f"{tag}_grad_row_rel"] = rel
+        agree[f"{tag}_grad_max_rel"] = float((got - ref).abs().max() / ref.abs().max())
+        check(rel <= ROW_TOL, f"flash vs dense {tag} gradient: row error {rel}")
+        faults = planted_faults(torch, got, ref, y if tag == "last_weight" else None)
+        agree[f"{tag}_planted"] = {k: v[0] for k, v in faults.items()}
+        for k, (f_rel, _) in faults.items():
+            check(f_rel > ROW_TOL, f"the row check missed the planted {tag} fault {k}")
+
+    # throughput: median of a few windows per head
+    flops = resnet34_train_flops(TRAIN_B, 40, TRAIN_T)
+    speed = {}
+    for tag, step in (("flash", flash_step), ("dense", dense_step)):
+        model.load_state_dict(init)
+        st = create_train_state(model)
+        st, _ = step(st, x, y, lr)  # warm-up
+        ms, windows, _ = _median_step_ms(torch, step, st, x, y, lr)
+        speed[tag] = {"ms_per_step": ms, "window_ms": windows,
+                      "examples_per_s": TRAIN_B * 1e3 / ms,
+                      "conv_mfu_bf16": flops / (ms * 1e-3) / PEAK_BF16_FLOPS}
+    emit({"phase": "train", "batch": TRAIN_B, "frames": TRAIN_T, "spk": SPK,
+          "launches": launches, "path_seconds_first_call": path_s,
+          "flash_losses": flash_losses, "dense_losses": dense_losses, "cv": epochs[0],
+          "agree": agree, "speed": speed, "conv_flops_per_step": flops,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30, "card": smi_line})
+
+    stages = {}
+    for tag, step in (("train_step_flash", flash_step), ("train_step_dense", dense_step)):
+        model.load_state_dict(init)
+        st = create_train_state(model)
+        dev_ms, n_act, top = device_ms(torch, lambda: step(st, x, y, lr), 2)
+        wall = call_ms(torch, lambda: step(st, x, y, lr), 3, warmup=1)
+        head = device_ms(torch, lambda: step(st, x, y, lr), 2,
+                         only=BWD_KERNELS + ("fwd_partial_kernel", "merge_kernel"))[0]
+        stages[tag] = {"device_ms": dev_ms, "wall_ms": wall, "activities": n_act,
+                       "busy": None if dev_ms is None else dev_ms / wall,
+                       "flash_kernels_ms": head, "top": top}
+    emit({"phase": "train_profile", "batch": TRAIN_B, "stages": stages, "card": smi_line})
+    return launches
+
+
+def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": max(max(r[k] for k in err_keys) for r in rows),
+            "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "shape": {"B": main_row["B"], "C": main_row["C"], "D": main_row["D"]},
+            "ok": True}
+
+
 def main():
     try:
         import torch
@@ -377,23 +697,24 @@ def main():
     try:
         smi_line = phase_env(torch)
         phase_build()
-        rows = phase_kernel(torch)
+        rows, bwd_rows = phase_kernel(torch)
         launches = phase_slice(torch, smi_line)
+        train_launches = phase_train(torch, smi_line)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
-    main_row = rows[0]  # the slice's own eval shape
-    kernels = [{
-        "name": "flash_aam_fwd", "route": "cuda",
-        "source": "pkr_tpu_torch/csrc/flash_aam_fwd.cu",
-        "replaces": "pkr_tpu/ops/flash_aam.py:53",
-        "launches": launches["flash_aam_fwd"],
-        "max_abs_err": max(max(r["max_abs_err_lse"], r["max_abs_err_zy"]) for r in rows),
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": {"B": main_row["B"], "C": main_row["C"], "D": main_row["D"]},
-        "ok": True}]
+    # each kernel's time at its main path's shape: the slice's eval batch for
+    # the forward, the train step's for the backward
+    kernels = [
+        _kernel_entry("flash_aam_fwd", "pkr_tpu_torch/csrc/flash_aam_fwd.cu",
+                      "pkr_tpu/ops/flash_aam.py:53",
+                      {"slice": launches["flash_aam_fwd"],
+                       "train": train_launches["flash_aam_fwd"]},
+                      rows, rows[0], ("max_abs_err_lse", "max_abs_err_zy")),
+        _kernel_entry("flash_aam_bwd", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
+                      "pkr_tpu/ops/flash_aam.py:197",
+                      {"train": train_launches["flash_aam_bwd"]},
+                      bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"))]
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

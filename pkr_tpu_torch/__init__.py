@@ -8,10 +8,13 @@ obvious counterpart, and it imports neither JAX nor anything of ``pkr_tpu``:
 - ``pkr_tpu_torch.models``    ResNet trunks (reference state-dict names) and
                               the speaker model with softmax/AAM heads
 - ``pkr_tpu_torch.ops``       stats pooling, the dense AAM head and the
-                              flash AAM eval head with its CUDA kernel
-- ``pkr_tpu_torch.train``     the eval step (dense and flash)
+                              flash AAM head with its CUDA kernels
+- ``pkr_tpu_torch.train``     train state and SGD, the train and eval steps
+                              (dense and flash heads), the epoch loop
 - ``pkr_tpu_torch.eval``      extraction, cosine scoring, EER/minDCF
-- ``pkr_tpu_torch.convert``   flax variables → the port's state dict
+- ``pkr_tpu_torch.utils``     training meters, progress logging, profiling
+- ``pkr_tpu_torch.convert``   flax variables (and a mid-training
+                              ``TrainState``) → the port's state dict
 
 Entry points take ``device=None``, meaning ``"cuda"``; they raise when no
 card is present instead of falling back to the CPU.  Pass ``device="cpu"``

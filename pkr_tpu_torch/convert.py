@@ -10,14 +10,20 @@ leaves; nothing of JAX is imported.
 - BatchNorm scale/bias/mean/var → weight/bias/running_mean/running_var
   (+ num_batches_tracked = 0, so ``load_state_dict`` can be strict);
 - ``aam_weight`` → ``last.weight`` as it is, (spk_num, emb_dim).
+
+:func:`train_state_from_flax` also carries a ``pkr_tpu`` ``TrainState``
+across mid-training: the optax momentum trace has the layout of the params,
+so it moves by the same names and transposes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from pkr_tpu_torch.train.state import TrainState
 
 _BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
             "var": "running_var"}
@@ -67,3 +73,35 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
                 out.setdefault(bn_count, torch.zeros((), dtype=torch.int64))
             out[f"{name}.{leaf}"] = torch.tensor(arr)  # a contiguous copy
     return out
+
+
+def _momentum_trace(opt_state: Any) -> Optional[Mapping[str, Any]]:
+    """The params-shaped ``trace`` of optax's TraceState, wherever it sits in
+    the (named) tuples and dicts of an optax state."""
+    trace = getattr(opt_state, "trace", None)
+    if isinstance(trace, Mapping):
+        return trace
+    children = (opt_state.values() if isinstance(opt_state, Mapping)
+                else opt_state if isinstance(opt_state, (tuple, list)) else ())
+    for child in children:
+        found = _momentum_trace(child)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_flax(state: Any) -> Tuple[Dict[str, torch.Tensor], TrainState]:
+    """A ``pkr_tpu`` ``TrainState`` (params, batch_stats, opt_state with the
+    optax momentum trace, step, epoch, best_acc1; numpy or array-like
+    leaves) → (the port's model state dict, its ``TrainState`` on the CPU).
+    Load the first with ``load_state_dict(strict=True)`` and move the second
+    with ``.to(device)``."""
+    sd = state_dict_from_flax({"params": state.params,
+                               "batch_stats": state.batch_stats})
+    trace = _momentum_trace(state.opt_state)
+    if trace is None:
+        raise ValueError("opt_state holds no optax momentum trace")
+    momentum = {k: v for k, v in state_dict_from_flax({"params": trace}).items()
+                if not k.endswith(".num_batches_tracked")}
+    return sd, TrainState(momentum, torch.tensor(int(np.asarray(state.step)), dtype=torch.int64),
+                          int(np.asarray(state.epoch)), float(np.asarray(state.best_acc1)))

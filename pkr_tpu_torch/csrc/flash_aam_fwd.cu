@@ -27,42 +27,15 @@
 // padded.  At the end the 16 threads that share a row merge their states with
 // warp shuffles and the block writes one partial state per (split, row).  A
 // second small kernel merges the splits in a fixed order, without atomics, so
-// the result is deterministic.  Faster versions (3xTF32 or wgmma, TMA) are
-// later work.
+// the result is deterministic.  The tile product and the margin live in
+// flash_aam_common.cuh, shared with the backward kernel.  Faster versions
+// (3xTF32 or wgmma, TMA) are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_aam_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;          // batch rows per block
-constexpr int BN = 64;          // classes per class tile
-constexpr int BK = 16;          // depth of one staged chunk
-constexpr int TM = 4;           // rows per thread
-constexpr int TN = 4;           // classes per thread
-constexpr int NTHREADS = 256;   // (BM / TM) x (BN / TN) = 16 x 16
-constexpr float NEG_INF = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
-
-static_assert((BM / TM) * (BN / TN) == NTHREADS, "thread tile");
-static_assert(BM * BK == NTHREADS * 4 && BN * BK == NTHREADS * 4, "loader");
-
-struct Margin {
-  float s, cos_m, sin_m, th, mm;
-};
-
-// The margined, scaled logit.  The _rn intrinsics keep nvcc from contracting
-// these steps into FMAs, so each rounds as the plain PyTorch version does.
-__device__ __forceinline__ float margined(float cos, bool is_tgt, const Margin& mg) {
-  float z = cos;
-  if (is_tgt) {
-    float sin2 = __fsub_rn(1.0f, __fmul_rn(cos, cos));
-    float sin = sqrtf(fminf(fmaxf(sin2, 1e-12f), 1.0f));
-    float phi = __fsub_rn(__fmul_rn(cos, mg.cos_m), __fmul_rn(sin, mg.sin_m));
-    z = (__fsub_rn(cos, mg.th) > 0.0f) ? phi : __fsub_rn(cos, mg.mm);
-  }
-  return __fmul_rn(z, mg.s);
-}
+using namespace flash_aam;
 
 __global__ void __launch_bounds__(NTHREADS)
 fwd_partial_kernel(const float* __restrict__ e, const float* __restrict__ w,
@@ -83,10 +56,6 @@ fwd_partial_kernel(const float* __restrict__ e, const float* __restrict__ w,
   const int tile_lo = split * tiles_per_split;
   const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
 
-  // loader: each thread stages 4 consecutive depth values of one row
-  const int ld_r = tid >> 2;
-  const int ld_k = (tid & 3) * 4;
-
   int lab[TM];
   float ztr[TM], run_m[TM], run_s[TM], run_zy[TM], run_cnt[TM];
 #pragma unroll
@@ -103,46 +72,7 @@ fwd_partial_kernel(const float* __restrict__ e, const float* __restrict__ w,
   for (int t = tile_lo; t < tile_hi; ++t) {
     const int col0 = t * BN;
     float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-    float sq = 0.0f;
-
-    for (int k0 = 0; k0 < D; k0 += BK) {
-      __syncthreads();  // the previous chunk (and wsq) has been read
-      const int r = row0 + ld_r;
-      const int c = col0 + ld_r;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = k0 + ld_k + q;
-        As[ld_k + q][ld_r] = (r < B && k < D) ? e[(size_t)r * D + k] : 0.0f;
-        const float v = (c < C && k < D) ? w[(size_t)c * D + k] : 0.0f;
-        Bs[ld_k + q][ld_r] = v;
-        sq = fmaf(v, v, sq);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-        const float av[TM] = {a.x, a.y, a.z, a.w};
-        const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    // the 4 loader lanes of a W row are neighbours in one warp
-    sq += __shfl_xor_sync(FULL, sq, 1);
-    sq += __shfl_xor_sync(FULL, sq, 2);
-    if ((tid & 3) == 0) wsq[ld_r] = sq;
-    __syncthreads();
-
-    float wn[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) wn[j] = sqrtf(fmaxf(wsq[tx * TN + j], 1e-24f));
+    dot_tile(e, w, B, C, D, row0, col0, As, Bs, wsq, acc);
 
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -153,7 +83,7 @@ fwd_partial_kernel(const float* __restrict__ e, const float* __restrict__ w,
         const int c = col0 + tx * TN + j;
         const bool valid = c < C;
         const bool is_tgt = valid && c == lab[i];
-        z[j] = margined(__fdiv_rn(acc[i][j], wn[j]), is_tgt, mg);
+        z[j] = margined(cosine(acc[i][j], wsq[tx * TN + j]), is_tgt, mg);
         if (valid) {
           tile_max = fmaxf(tile_max, z[j]);
           if (is_tgt) run_zy[i] += z[j];

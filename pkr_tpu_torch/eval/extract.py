@@ -22,17 +22,20 @@ SEG_SEP = "##"
 def make_embed_fn(model, device: DeviceLike = None
                   ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """Returns embed(feats (B, F, T), mask (B, T)) → (B, emb_dim) on the
-    device.  The model is moved to ``device`` and put in eval mode.
+    device.  The model is moved to ``device``; every call puts it in eval
+    mode, so a train step run in between does not leave BatchNorm on batch
+    statistics.
 
     Feature batches cross to the card in the trunk's compute type: for a
     bf16 model the first conv casts its input to bf16 anyway, so the cast
     before the copy changes nothing and halves the bytes."""
     dev = resolve_device(device)
-    model.to(dev).eval()
+    model.to(dev)
     xfer = model.dtype
 
     @torch.no_grad()
     def embed(feats, mask):
+        model.eval()
         feats = as_device_tensor(feats, dev, xfer)
         mask = as_device_tensor(mask, dev, torch.bool)
         return model.embed(feats, mask)

@@ -3,7 +3,9 @@ softmax/AAM heads.  The SE, thin, bottleneck and DenseNet trunks of
 ``pkr_tpu.models`` are not ported yet."""
 
 from pkr_tpu_torch.models.resnet import (
+    BatchNorm,
     ResNet,
+    commit_batch_stats,
     resnet18,
     resnet34,
     tiny_resnet,
@@ -11,7 +13,9 @@ from pkr_tpu_torch.models.resnet import (
 from pkr_tpu_torch.models.speaker_model import SpeakerModel
 
 __all__ = [
+    "BatchNorm",
     "ResNet",
+    "commit_batch_stats",
     "resnet18",
     "resnet34",
     "tiny_resnet",

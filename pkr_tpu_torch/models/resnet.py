@@ -17,8 +17,13 @@ between the reference, ``pkr_tpu`` and the port by name.
 Masks: with a (B, T) frame mask, padded time columns are re-zeroed after
 the stem, inside each block after relu(conv1) and after each block, which is
 what an exact-length run's conv zero padding sees — so bucketed extraction
-equals exact-length extraction for every valid column.  BN runs with its
-running statistics (inference); the trainer comes in a later slice.
+equals exact-length extraction for every valid column.
+
+BatchNorm follows flax (``pkr_tpu`` uses ``flax.linen.BatchNorm``): in
+train mode it normalizes with the biased batch variance and stages the
+batch statistics; :func:`commit_batch_stats` folds them into the running
+statistics with the biased variance, or drops them (the train step's NaN
+guard).  Torch's ``BatchNorm2d`` would fold in the unbiased variance.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -33,6 +39,56 @@ def _conv(cin: int, cout: int, k: int, stride: int) -> nn.Conv2d:
     conv = nn.Conv2d(cin, cout, k, stride, padding=(k - 1) // 2, bias=False)
     nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
     return conv
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over dim 1 of (B, C) or (B, C, H, W), with flax's semantics.
+
+    Eval mode normalizes with the running statistics.  Train mode normalizes
+    with the batch mean and biased variance and leaves the running
+    statistics alone: it stages the batch's (mean, biased variance) in
+    ``staged`` for :func:`commit_batch_stats`.  The state-dict names are
+    torch's (``weight``, ``bias``, ``running_mean``, ``running_var``,
+    ``num_batches_tracked``), so checkpoints move by name as before."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum  # flax's momentum: ra = μ·ra + (1 − μ)·stat
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.int64))
+        self.staged = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        # with momentum 1.0 the scratch buffers receive the batch's own mean
+        # and unbiased variance from the very pass that normalizes
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        self.staged = (mean, var * ((n - 1) / n))
+        return y
+
+
+@torch.no_grad()
+def commit_batch_stats(model: nn.Module, ok: torch.Tensor) -> None:
+    """Fold every BatchNorm's staged batch statistics into its running ones,
+    ``ra = μ·ra + (1 − μ)·stat`` as flax 0.12.3 does, where the bool tensor
+    ``ok`` holds; then clear them.  Deciding with ``torch.where`` keeps the
+    step free of a host sync."""
+    for mod in model.modules():
+        if not isinstance(mod, BatchNorm) or mod.staged is None:
+            continue
+        mu = mod.momentum
+        for buf, stat in zip((mod.running_mean, mod.running_var), mod.staged):
+            buf.copy_(torch.where(ok, mu * buf + (1.0 - mu) * stat, buf))
+        mod.num_batches_tracked += ok.to(torch.int64)
+        mod.staged = None
 
 
 def zero_time_pad(x: torch.Tensor, n_valid: Optional[torch.Tensor]) -> torch.Tensor:
@@ -48,13 +104,13 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.stride = stride
         self.conv1 = _conv(cin, cout, 3, stride)
-        self.bn1 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn1 = BatchNorm(cout)
         self.conv2 = _conv(cout, cout, 3, 1)
-        self.bn2 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn2 = BatchNorm(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
-                                            nn.BatchNorm2d(cout, eps=1e-5))
+                                            BatchNorm(cout))
 
     def forward(self, x: torch.Tensor,
                 n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -76,7 +132,7 @@ class ResNet(nn.Module):
         self.stage_sizes = tuple(stage_sizes)
         self.base_width = base_width
         self.conv1 = _conv(1, base_width, 3, 1)
-        self.bn1 = nn.BatchNorm2d(base_width, eps=1e-5)
+        self.bn1 = BatchNorm(base_width)
         cin = base_width
         for i, n_blocks in enumerate(self.stage_sizes):
             cout = base_width * (2 ** i)

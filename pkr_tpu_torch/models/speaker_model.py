@@ -11,7 +11,12 @@ Port of ``pkr_tpu/models/speaker_model.py`` (reference NeuralSpeakerModel):
 ``dtype`` is the trunk's compute type: bf16 runs the convolutions under
 autocast (the speed path on the card), float32 runs them in full f32 with
 TF32 off (the parity path).  Pooling and everything after it stay f32.
-BatchNorm uses its running statistics: this slice serves and evaluates.
+
+The module's mode is the reference's ``train`` flag: in train mode every
+BatchNorm (trunk and ``bn1``) normalizes with batch statistics and stages
+them for ``resnet.commit_batch_stats``; in eval mode it uses the running
+statistics.  A new model is in eval mode; the train and eval steps set the
+mode they need on every call.
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ class SpeakerModel(nn.Module):
         n_stats = 2 if pooling == "mean+std" else 1
         self.fc1 = _dense(self.res.out_channels * n_stats * ((feat_dim + 7) // 8), emb_dim)
         if loss in ("softmax", "AAM-v1"):
-            self.bn1 = nn.BatchNorm1d(emb_dim, eps=1e-5)
+            self.bn1 = _resnet.BatchNorm(emb_dim)
         if loss == "softmax":
             self.last = _dense(emb_dim, spk_num)
         else:

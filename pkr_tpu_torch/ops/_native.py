@@ -3,9 +3,10 @@
 Each ``pkr_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` (Hopper) into a shared library under
 ``build/pkr_tpu_torch/`` at the root of the checkout, then loaded with
-``ctypes``.  The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale one never loads.  No
-PyTorch header is included, which keeps a build to seconds.
+``ctypes``.  The library's file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt
+and a stale one never loads.  No PyTorch header is included, which keeps a
+build to seconds; :func:`build_all` runs one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -67,27 +68,56 @@ def _ptxas_usage(log: str) -> Dict[str, dict]:
     return out
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the library for this exact source exists."""
+def _library(name: str) -> Path:
+    """The library path of csrc/<name>.cu for the current source and flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    blob = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path, Path, float]]:
+    """Start nvcc for csrc/<name>.cu unless its library exists."""
+    lib = _library(name)
     if lib.exists():
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "path": str(lib), "ptxas": {}})
-        return lib
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, lib, time.perf_counter()
+
+
+def _finish(name: str, job: Tuple[subprocess.Popen, Path, Path, float]) -> None:
+    proc, tmp, lib, t0 = job
+    log, _ = proc.communicate()
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {CSRC / name}.cu:\n{log}")
     os.replace(tmp, lib)
-    BUILD_INFO[name] = {"seconds": seconds, "path": str(lib),
-                        "ptxas": _ptxas_usage(proc.stdout + proc.stderr)}
-    return lib
+    BUILD_INFO[name] = {"seconds": seconds, "path": str(lib), "ptxas": _ptxas_usage(log)}
+
+
+def build_all(names: Iterable[str]) -> None:
+    """Compile every csrc/<name>.cu whose library is missing, one nvcc each,
+    all running at once."""
+    jobs = {name: _start(name) for name in names}
+    errors = []
+    for name, job in jobs.items():
+        if job is not None:
+            try:
+                _finish(name, job)
+            except RuntimeError as exc:
+                errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the library for this exact source exists."""
+    build_all([name])
+    return _library(name)
 
 
 def load(name: str) -> ctypes.CDLL:

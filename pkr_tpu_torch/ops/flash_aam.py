@@ -1,6 +1,6 @@
-"""Flash AAM-softmax loss, forward: margin + online-softmax CE over class tiles.
+"""Flash AAM-softmax loss: margin + online-softmax CE over class tiles.
 
-Port of the forward half of ``pkr_tpu/ops/flash_aam.py``.  The dense head
+Port of ``pkr_tpu/ops/flash_aam.py`` without the mesh.  The dense head
 materializes (B, n_spk) cosine logits; at large speaker counts that tensor
 dominates the step's memory traffic.  The flash head streams class tiles
 instead and keeps per example only the online state (lse, zy, mx, cnt):
@@ -10,13 +10,20 @@ instead and keeps per example only the online state (lse, zy, mx, cnt):
 - mx  — the running max (top-1: zy >= mx);
 - cnt — non-target classes whose logit beats zt (top-5: cnt < 5).
 
-On a CUDA tensor :func:`flash_aam_fwd` launches the hand-written kernel
-``pkr_tpu_torch/csrc/flash_aam_fwd.cu`` (sm_90a) or raises; on a CPU tensor
-it runs :func:`flash_aam_fwd_plain`, the class-tiled PyTorch version of the
-same function, which is also what the kernel is held against on the card.
+The backward recomputes each cosine tile and forms the logit gradients
+a = (softmax − onehot)·dz/dcos·g tile by tile, accumulating dê (B, D) and
+dW (C, D); the (B, n_spk) logits and probabilities never exist either.
 
-This slice is forward-only: the eval head.  The backward kernel
-(``pkr_tpu/ops/flash_aam.py::_bwd_kernel``) comes with the train step.
+Each direction has a kernel wrapper and its plain version:
+:func:`flash_aam_fwd` launches ``pkr_tpu_torch/csrc/flash_aam_fwd.cu`` and
+:func:`flash_aam_bwd` launches ``pkr_tpu_torch/csrc/flash_aam_bwd.cu``
+(both sm_90a) on a CUDA tensor, or raise; on a CPU tensor they run
+:func:`flash_aam_fwd_plain` and :func:`flash_aam_bwd_plain`, the
+class-tiled PyTorch versions of the same functions, which are also what the
+kernels are held against on the card.  :func:`flash_aam_loss` and
+:func:`flash_aam_loss_acc` are differentiable in ``emb`` and ``weight``
+through one ``torch.autograd.Function``, the counterpart of the reference's
+two ``jax.custom_vjp`` functions.
 """
 
 from __future__ import annotations
@@ -34,8 +41,11 @@ from pkr_tpu_torch.ops.aam import _normalize, _phi, aam_logits
 DEFAULT_TILE = 2048
 _NEG_INF = -1e30
 _KERNEL = "flash_aam_fwd"
-# CUDA blocks to aim for when the class axis is split: a few per SM
+_BWD_KERNEL = "flash_aam_bwd"
+# CUDA blocks to aim for when the class axis is split: a few per SM (the
+# backward's blocks hold twice the registers, so it aims for fewer)
 _BLOCKS_PER_SM = 4
+_BWD_BLOCKS_PER_SM = 2
 
 
 def _margin_consts(m: float):
@@ -87,18 +97,73 @@ def flash_aam_fwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
     return run_m + torch.log(run_s), zy, run_m, cnt
 
 
-def _check_inputs(e_hat, weight, labels, zt):
+def flash_aam_bwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
+                        labels: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                        m: float = 0.2, s: float = 30.0, tile: int = DEFAULT_TILE):
+    """The plain PyTorch version of the backward kernel, class tile by class
+    tile as ``_bwd_kernel`` goes: recompute cos and p = exp(z − lse), form
+    a = (p − onehot)·dz/dcos·g, accumulate dê += a·ŵ and write each tile's
+    dW = (aᵀe − proj·ŵ)/‖w‖.  Returns (dê (B, D), dW (C, D)), f32."""
+    B, D = e_hat.shape
+    C = weight.shape[0]
+    dev = e_hat.device
+    cos_m, sin_m, th, mm = _margin_consts(m)
+    de = torch.zeros((B, D), dtype=torch.float32, device=dev)
+    dw = torch.empty((C, D), dtype=torch.float32, device=dev)
+    lab = labels.to(device=dev, dtype=torch.int64)[:, None]
+    lse2, g2 = lse[:, None], g[:, None]
+    for c0 in range(0, C, tile):
+        w = weight[c0:c0 + tile].to(torch.float32)
+        wnorm = torch.sqrt(torch.clamp(torch.sum(w * w, dim=1, keepdim=True), min=1e-24))
+        w_hat = w / wnorm
+        with full_f32():
+            cos = torch.matmul(e_hat, w_hat.T)  # (B, tile)
+        sin2 = 1.0 - cos * cos
+        sin = torch.sqrt(torch.clamp(sin2, 1e-12, 1.0))
+        in_phi = cos - th > 0
+        phi = torch.where(in_phi, cos * cos_m - sin * sin_m, cos - mm)
+        is_tgt = torch.arange(c0, c0 + w.shape[0], device=dev)[None, :] == lab
+        p = torch.exp(torch.where(is_tgt, phi, cos) * s - lse2)
+        # dz/dcos: s off the target, s·phi' on it; no gradient through sin
+        # where its clip is active (cos → ±1), as the dense autograd
+        dsin = torch.where(sin2 >= 1e-12, -cos / sin, 0.0)
+        dphi = torch.where(in_phi, cos_m - sin_m * dsin, 1.0)
+        dz = torch.where(is_tgt, s * dphi, s)
+        a = (p - is_tgt.to(torch.float32)) * dz * g2
+        with full_f32():
+            de += torch.matmul(a, w_hat)
+            dw_hat = torch.matmul(a.T, e_hat)  # (tile, D)
+        proj = torch.sum(dw_hat * w_hat, dim=1, keepdim=True)
+        dw[c0:c0 + tile] = (dw_hat - proj * w_hat) / wnorm
+    return de, dw
+
+
+def _check_inputs(e_hat, weight, labels, per_row, what):
+    """Shapes and types shared by both wrappers; ``per_row`` are the other
+    (B,) f32 inputs, named in ``what``."""
     B, D = e_hat.shape
     if weight.ndim != 2 or weight.shape[1] != D:
         raise ValueError(f"weight must be (C, {D}), got {tuple(weight.shape)}")
     if weight.shape[0] < 1:
         raise ValueError("weight has no classes")
-    if labels.shape != (B,) or zt.shape != (B,):
-        raise ValueError(f"labels and zt must be ({B},), got "
-                         f"{tuple(labels.shape)} and {tuple(zt.shape)}")
-    for name, t in (("e_hat", e_hat), ("weight", weight), ("zt", zt)):
+    for name, t in zip(("labels",) + what, (labels,) + per_row):
+        if t.shape != (B,):
+            raise ValueError(f"{name} must be ({B},), got {tuple(t.shape)}")
+    for name, t in zip(("e_hat", "weight") + what, (e_hat, weight) + per_row):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+
+
+def _on_card(e_hat, others, op):
+    """True for CUDA inputs (all on e_hat's device), False for CPU ones."""
+    if e_hat.device.type == "cpu":
+        return False
+    if e_hat.device.type != "cuda":
+        raise ValueError(f"{op} runs on cuda or cpu, not {e_hat.device}")
+    for name, t in others.items():
+        if t.device != e_hat.device:
+            raise ValueError(f"{name} is on {t.device}, e_hat on {e_hat.device}")
+    return True
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,24 +182,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _n_splits(n_tiles, n_btiles, dev, blocks_per_sm):
+    """(class tiles per split, splits) so that batch tiles × splits fill the
+    card with about ``blocks_per_sm`` blocks per SM."""
+    target = blocks_per_sm * _sm_count(dev.index if dev.index is not None
+                                       else torch.cuda.current_device())
+    tiles_per_split = max(1, -(-n_tiles * n_btiles // target))
+    return tiles_per_split, -(-n_tiles // tiles_per_split)
+
+
 def _launch(e_hat, weight, labels, zt, m, s):
     fn, bm, bn = _kernel()
     dev = e_hat.device
-    for name, t in (("weight", weight), ("labels", labels), ("zt", zt)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, e_hat on {dev}")
     e_hat = e_hat.contiguous()
     weight = weight.contiguous()
     labels = labels.to(torch.int32).contiguous()
     zt = zt.contiguous()
     B, D = e_hat.shape
     C = weight.shape[0]
-    n_tiles = -(-C // bn)
-    n_btiles = -(-B // bm)
-    target = _BLOCKS_PER_SM * _sm_count(dev.index if dev.index is not None
-                                        else torch.cuda.current_device())
-    tiles_per_split = max(1, -(-n_tiles * n_btiles // target))
-    n_splits = -(-n_tiles // tiles_per_split)
+    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), dev, _BLOCKS_PER_SM)
     part = torch.empty((4, n_splits, B), dtype=torch.float32, device=dev)
     out = torch.empty((4, B), dtype=torch.float32, device=dev)
     cos_m, sin_m, th, mm = _margin_consts(m)
@@ -160,15 +226,73 @@ def flash_aam_fwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tenso
     tensor launches the kernel (counted in ``flash_aam_fwd.launches``) or
     raises; a CPU tensor runs the plain version (``tile`` sets its class
     tile; the kernel tiles by its own constants)."""
-    _check_inputs(e_hat, weight, labels, zt)
-    if e_hat.device.type == "cuda":
+    _check_inputs(e_hat, weight, labels, (zt,), ("zt",))
+    if _on_card(e_hat, {"weight": weight, "labels": labels, "zt": zt}, "flash_aam_fwd"):
         return _launch(e_hat, weight, labels, zt, m, s)
-    if e_hat.device.type != "cpu":
-        raise ValueError(f"flash_aam_fwd runs on cuda or cpu, not {e_hat.device}")
     return flash_aam_fwd_plain(e_hat, weight, labels, zt, m, s, tile)
 
 
 flash_aam_fwd.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    """(launch function, block rows, block classes, largest D) of the built
+    backward library."""
+    lib = _native.load(_BWD_KERNEL)
+    fn = lib.flash_aam_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
+                   + [ctypes.c_void_p] * 4)
+    return (fn, lib.flash_aam_bwd_block_rows(), lib.flash_aam_bwd_block_classes(),
+            lib.flash_aam_bwd_max_dim())
+
+
+def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
+    fn, bm, bn, max_d = _bwd_kernel()
+    B, D = e_hat.shape
+    C = weight.shape[0]
+    if D > max_d:
+        raise ValueError(f"the flash_aam_bwd kernel takes D <= {max_d}, got {D}")
+    dev = e_hat.device
+    e_hat, weight, lse, g = (t.contiguous() for t in (e_hat, weight, lse, g))
+    labels = labels.to(torch.int32).contiguous()
+    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), dev,
+                                          _BWD_BLOCKS_PER_SM)
+    part = torch.empty((n_splits, B, D), dtype=torch.float32, device=dev)
+    de = torch.empty((B, D), dtype=torch.float32, device=dev)
+    dw = torch.empty((C, D), dtype=torch.float32, device=dev)
+    cos_m, sin_m, th, mm = _margin_consts(m)
+    with torch.cuda.device(dev):  # the launch goes to dev's current stream
+        err = fn(e_hat.data_ptr(), weight.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+                 g.data_ptr(), B, C, D, tiles_per_split, n_splits, s, cos_m, sin_m, th,
+                 mm, part.data_ptr(), de.data_ptr(), dw.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_aam_bwd kernel launch failed: cudaError {err}")
+    flash_aam_bwd.launches += 1
+    return de, dw
+
+
+def flash_aam_bwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
+                  lse: torch.Tensor, g: torch.Tensor, m: float = 0.2, s: float = 30.0,
+                  tile: int = DEFAULT_TILE):
+    """(dê (B, D), dW (C, D)) f32: the gradients of sum_b g_b·(lse_b − zy_b)
+    with respect to the normalized embeddings and the raw class weights.
+
+    e_hat (B, D) f32 L2-normalized embeddings, weight (C, D) f32, labels (B,)
+    integer, lse (B,) f32 from the forward, g (B,) f32 per-example loss
+    gradient.  A CUDA tensor launches the kernel (counted in
+    ``flash_aam_bwd.launches``; D <= 256) or raises; a CPU tensor runs the
+    plain version with class tile ``tile``."""
+    _check_inputs(e_hat, weight, labels, (lse, g), ("lse", "g"))
+    if _on_card(e_hat, {"weight": weight, "labels": labels, "lse": lse, "g": g},
+                "flash_aam_bwd"):
+        return _launch_bwd(e_hat, weight, labels, lse, g, m, s)
+    return flash_aam_bwd_plain(e_hat, weight, labels, lse, g, m, s, tile)
+
+
+flash_aam_bwd.launches = 0
 
 
 def _acc_from(zy: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
@@ -184,23 +308,53 @@ def _acc5_from(cnt: torch.Tensor) -> torch.Tensor:
     return torch.mean((cnt < 5.0).to(torch.float32))
 
 
+class _FlashAAMLoss(torch.autograd.Function):
+    """(mean ArcFace CE, top-1, top-5) forward through the forward kernel;
+    the backward kernel gives the loss's gradients in emb and weight.  The
+    two metrics are marked non-differentiable: they are not loss terms."""
+
+    @staticmethod
+    def forward(ctx, emb, weight, labels, m, s, tile):
+        e_hat, e_norm = _normalize(emb.to(torch.float32))
+        w = weight.to(torch.float32)
+        labels = labels.to(device=e_hat.device, dtype=torch.int64)
+        safe = torch.clamp(labels, 0, w.shape[0] - 1)
+        zt = _margined_target_z(e_hat, w, safe, m, s)
+        lse, zy, mx, cnt = flash_aam_fwd(e_hat, w, labels, zt, m, s, tile)
+        ctx.save_for_backward(e_hat, e_norm, w, labels, lse)
+        ctx.consts = (m, s, tile, emb.dtype, weight.dtype)
+        acc, acc5 = _acc_from(zy, mx), _acc5_from(cnt)
+        ctx.mark_non_differentiable(acc, acc5)
+        return torch.mean(lse - zy), acc, acc5
+
+    @staticmethod
+    def backward(ctx, gloss, _gacc, _gacc5):
+        e_hat, e_norm, w, labels, lse = ctx.saved_tensors
+        m, s, tile, emb_dtype, w_dtype = ctx.consts
+        B = e_hat.shape[0]
+        g = (gloss.to(torch.float32) / B).expand(B).contiguous()
+        de_hat, dw = flash_aam_bwd(e_hat, w, labels, lse, g, m, s, tile)
+        # unproject dê through the embedding normalization
+        proj = torch.sum(de_hat * e_hat, dim=1, keepdim=True)
+        de = (de_hat - proj * e_hat) / e_norm
+        return de.to(emb_dtype), dw.to(w_dtype), None, None, None, None
+
+
+def flash_aam_loss(emb: torch.Tensor, weight: torch.Tensor, labels: torch.Tensor,
+                   m: float = 0.2, s: float = 30.0, tile: int = DEFAULT_TILE
+                   ) -> torch.Tensor:
+    """Mean ArcFace cross-entropy without materializing (B, n_classes)
+    logits; differentiable in emb (B, D) and weight (n_classes, D)."""
+    return _FlashAAMLoss.apply(emb, weight, labels, m, s, tile)[0]
+
+
 def flash_aam_loss_acc(emb: torch.Tensor, weight: torch.Tensor,
                        labels: torch.Tensor, m: float = 0.2, s: float = 30.0,
                        tile: int = DEFAULT_TILE):
-    """(mean ArcFace CE, top-1, top-5) without materializing (B, n_classes)
-    logits.  emb (B, D), weight (n_classes, D).  Forward only."""
-    if torch.is_grad_enabled() and (emb.requires_grad or weight.requires_grad):
-        raise NotImplementedError(
-            "flash_aam_loss_acc is forward-only: its backward, the port of "
-            "pkr_tpu/ops/flash_aam.py::_bwd_kernel, is not written yet; call "
-            "it under torch.no_grad() or use the dense head (ops.aam) to train")
-    e_hat, _ = _normalize(emb.to(torch.float32))
-    w = weight.to(torch.float32)
-    labels = labels.to(device=e_hat.device, dtype=torch.int64)
-    safe = torch.clamp(labels, 0, w.shape[0] - 1)
-    zt = _margined_target_z(e_hat, w, safe, m, s)
-    lse, zy, mx, cnt = flash_aam_fwd(e_hat, w, labels, zt, m, s, tile)
-    return torch.mean(lse - zy), _acc_from(zy, mx), _acc5_from(cnt)
+    """(loss, top-1, top-5): the loss as :func:`flash_aam_loss` plus the
+    margined top-1 from the forward's online max and top-5 from its online
+    target-rank count (no extra pass; the metrics carry no gradient)."""
+    return _FlashAAMLoss.apply(emb, weight, labels, m, s, tile)
 
 
 def reference_aam_loss(emb: torch.Tensor, weight: torch.Tensor,

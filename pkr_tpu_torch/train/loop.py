@@ -1,18 +1,32 @@
-"""The eval step: loss and top-1/top-5 counts of labelled utterances.
+"""The train and eval steps and the epoch loop.
 
-Port of ``cross_entropy``, ``topk_correct`` and ``make_eval_step`` from
-``pkr_tpu/train/loop.py`` (top-k as accuracy.py:4-17 of the reference).  The
-train step and the epoch loop come in a later slice.
+Port of ``pkr_tpu/train/loop.py`` without the mesh: ``cross_entropy``,
+``topk_correct`` (top-k as accuracy.py:4-17 of the reference),
+``make_train_step`` with the dense head or the flash head,
+``make_eval_step`` and ``train_and_validate``.
+
+The model holds the parameters and the BatchNorm statistics and the
+``TrainState`` the momentum, so a train step updates both in place and
+returns the same state.  Each step sets the model's mode itself: the train
+step puts it in train mode (batch statistics), the eval step in eval mode
+(running statistics), so cv never runs with batch statistics whichever
+step ran last.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+import math
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from pkr_tpu_torch.device import DeviceLike, as_device_tensor, resolve_device
+from pkr_tpu_torch.device import DeviceLike, as_device_tensor, full_f32, resolve_device
+from pkr_tpu_torch.models.resnet import commit_batch_stats
 from pkr_tpu_torch.ops.flash_aam import flash_aam_loss_acc
+from pkr_tpu_torch.train.state import TrainState, cosine_epoch_lr, sgd_step
+from pkr_tpu_torch.utils.logging import AverageMeter, ProgressLogger, profile_trace
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -27,6 +41,60 @@ def topk_correct(logits: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Te
                      .to(torch.float32))
 
 
+def _check_flash(model, flash_aam: bool) -> None:
+    if flash_aam and model.loss not in ("AAM", "AAM-v1"):
+        raise ValueError(f"flash_aam needs an AAM-family head, got {model.loss!r}")
+
+
+def make_train_step(model, momentum: float = 0.9, weight_decay: float = 5e-4,
+                    flash_aam: bool = False, device: DeviceLike = None
+                    ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Returns train_step(state, feats (B, F, T), labels (B,), lr) →
+    (state, {'loss', 'acc1', 'acc5'}), the metrics as f32 scalars on the
+    device.  The model is moved to ``device``; ``state`` must be on it too.
+
+    flash_aam (AAM and AAM-v1 heads) routes the head through the flash
+    loss (ops/flash_aam.py): the (B, n_spk) logits never exist, top-1 comes
+    from the forward kernel's online max and top-5 from its online
+    target-rank count, and the backward kernel gives the head's gradients.
+
+    NaN guard: a non-finite loss commits nothing (parameters, momentum and
+    BatchNorm running statistics keep their values) while the step counter
+    still advances.  The guard is decided on the device, so a step never
+    waits for the host."""
+    _check_flash(model, flash_aam)
+    dev = resolve_device(device)
+    model.to(dev)
+    names, params = zip(*model.named_parameters())
+
+    def train_step(state: TrainState, feats, labels, lr: float
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        model.train()
+        feats = as_device_tensor(feats, dev, torch.float32)
+        labels = as_device_tensor(labels, dev, torch.int64)
+        if flash_aam:
+            emb = model.head_input(feats)
+            loss, acc1, acc5 = flash_aam_loss_acc(emb, model.last.weight, labels,
+                                                  model.m, model.s)
+        else:
+            logits = model(feats, labels)
+            loss = cross_entropy(logits, labels)
+            with torch.no_grad():
+                acc1 = topk_correct(logits, labels, 1) / labels.shape[0]
+                acc5 = topk_correct(logits, labels, 5) / labels.shape[0]
+        with full_f32():  # the backward's f32 convolutions and matmuls too
+            grads = torch.autograd.grad(loss, params)
+        with torch.no_grad():
+            ok = torch.isfinite(loss)
+            commit_batch_stats(model, ok)
+            sgd_step(params, grads, [state.momentum[n] for n in names], lr, ok,
+                     momentum, weight_decay)
+            state.step += 1
+        return state, {"loss": loss.detach(), "acc1": acc1, "acc5": acc5}
+
+    return train_step
+
+
 def make_eval_step(model, flash_aam: bool = False, device: DeviceLike = None
                    ) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
     """Returns eval_step(feats (B, F, T), labels (B,)) → {'loss': CE·B,
@@ -35,14 +103,14 @@ def make_eval_step(model, flash_aam: bool = False, device: DeviceLike = None
     flash_aam routes the loss through the flash head (ops/flash_aam.py): the
     (B, n_spk) logits never exist, top-1 comes from the kernel's online max
     and top-5 from its online target-rank count.  The model is moved to
-    ``device`` and put in eval mode."""
-    if flash_aam and model.loss not in ("AAM", "AAM-v1"):
-        raise ValueError(f"flash_aam needs an AAM-family head, got {model.loss!r}")
+    ``device``; every call puts it in eval mode."""
+    _check_flash(model, flash_aam)
     dev = resolve_device(device)
-    model.to(dev).eval()
+    model.to(dev)
 
     @torch.no_grad()
     def eval_step(feats, labels) -> Dict[str, torch.Tensor]:
+        model.eval()
         feats = as_device_tensor(feats, dev, torch.float32)
         labels = as_device_tensor(labels, dev, torch.int64)
         bsz = labels.shape[0]
@@ -58,3 +126,85 @@ def make_eval_step(model, flash_aam: bool = False, device: DeviceLike = None
                 "n5": topk_correct(logits, labels, 5), "n": n}
 
     return eval_step
+
+
+def train_and_validate(model, state: TrainState, train_loader, cv_loader,
+                       epochs: int, lr0: float, lr_final: float = 0.0,
+                       momentum: float = 0.9, weight_decay: float = 5e-4,
+                       start_epoch: int = 0, print_freq: int = 100,
+                       on_epoch_end: Optional[Callable] = None,
+                       logger: Optional[ProgressLogger] = None,
+                       flash_aam: bool = False, save_every_steps: int = 0,
+                       on_step_save: Optional[Callable] = None,
+                       profile_dir: Optional[str] = None, profile_steps: int = 10,
+                       device: DeviceLike = None) -> TrainState:
+    """The epoch loop (train → validate → best-tracking on cv top-1).
+
+    Loaders are duck-typed: ``loader.epoch(epoch)`` yields (feats, labels).
+    The learning rate follows ``cosine_epoch_lr`` once per epoch.
+    ``on_step_save(state)`` runs every ``save_every_steps`` steps and
+    ``on_epoch_end(state, epoch, {'acc1', 'acc5', 'loss', 'is_best'})``
+    after each cv pass.  profile_dir traces ``profile_steps`` steady steps
+    of the first epoch (steps 5 .. 5 + n) with ``torch.profiler``."""
+    dev = resolve_device(device)
+    log = logger or ProgressLogger()
+    prof = contextlib.ExitStack()
+    prof_window = (5, 5 + profile_steps)
+    train_step = make_train_step(model, momentum, weight_decay, flash_aam, dev)
+    eval_step = make_eval_step(model, flash_aam, dev)
+    schedule = cosine_epoch_lr(lr0, epochs, lr_final)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # host-side mirror of state.step: reading the device counter every step
+    # would wait for the step just queued
+    host_step = int(state.step)
+    for epoch in range(start_epoch, epochs):
+        lr = schedule(epoch)
+        meters = {k: AverageMeter(k) for k in ("loss", "acc1", "acc5", "time")}
+        t0 = time.time()
+        for i, (feats, labels) in enumerate(train_loader.epoch(epoch)):
+            if profile_dir and epoch == start_epoch and i == prof_window[0]:
+                prof.enter_context(profile_trace(profile_dir))
+            state, metrics = train_step(state, feats, labels, lr)
+            host_step += 1
+            if profile_dir and epoch == start_epoch and i + 1 == prof_window[1]:
+                sync()
+                prof.close()
+            if save_every_steps and on_step_save and host_step % save_every_steps == 0:
+                on_step_save(state)
+            if (i + 1) % print_freq == 0:
+                sync()
+                dt = time.time() - t0
+                meters["time"].update(dt / print_freq, print_freq)
+                for k in ("loss", "acc1", "acc5"):
+                    meters[k].update(float(metrics[k]))
+                log.log(f"epoch {epoch} [{i + 1}] lr={lr:.5f} " +
+                        " ".join(str(m) for m in meters.values()),
+                        epoch=epoch, step=i + 1, lr=lr,
+                        loss=meters["loss"].avg, acc1=meters["acc1"].avg,
+                        step_time=meters["time"].avg)
+                t0 = time.time()
+        prof.close()  # short epochs: stop an unclosed trace window
+        host_step = int(state.step)
+        totals = {"loss": 0.0, "n1": 0.0, "n5": 0.0, "n": 0.0}
+        for feats, labels in cv_loader.epoch(epoch):
+            out = eval_step(feats, labels)
+            for k in totals:
+                totals[k] += float(out[k])
+        acc1 = totals["n1"] / max(totals["n"], 1.0)
+        acc5 = totals["n5"] / max(totals["n"], 1.0)
+        cv_loss = totals["loss"] / max(totals["n"], 1.0)
+        log.log(f"epoch {epoch} CV: loss={cv_loss:.4f} acc1={acc1:.4f} acc5={acc5:.4f}",
+                epoch=epoch, loss=cv_loss, acc1=acc1, acc5=acc5)
+        # a non-finite metric must not poison the running max
+        metric = acc1 if math.isfinite(acc1) else -math.inf
+        is_best = metric > state.best_acc1
+        state.epoch = epoch + 1
+        state.best_acc1 = max(state.best_acc1, metric)
+        if on_epoch_end is not None:
+            on_epoch_end(state, epoch, {"acc1": acc1, "acc5": acc5, "loss": cv_loss,
+                                        "is_best": is_best})
+    return state

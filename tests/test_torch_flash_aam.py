@@ -1,19 +1,27 @@
-"""Port flash AAM eval head (pkr_tpu_torch.ops.flash_aam) on the CPU.
+"""Port flash AAM head (pkr_tpu_torch.ops.flash_aam) on the CPU.
 
-On a CPU tensor the op runs its plain class-tiled PyTorch version; it is
-held against pkr_tpu's Pallas kernel in interpret mode and against both
-packages' dense reference, on the cases of tests/test_flash_aam.py: class
-counts that are not a multiple of the tile, both margin branches, and a
-saturated target cosine (exactly 1.0).  The loss is held within 1e-4, the
-bar tests/test_flash_aam.py holds the Pallas kernel to; top-1 and top-5 must
-be equal; the per-example online state (lse, zy, mx) within 1e-4 (logits are
-scaled by s=30, so that is ~3e-6 in cosine) and the rank count exactly.
+On a CPU tensor both directions run their plain class-tiled PyTorch
+versions; they are held against pkr_tpu's Pallas kernels in interpret mode
+and against both packages' dense reference, on the cases of
+tests/test_flash_aam.py: class counts that are not a multiple of the tile,
+both margin branches, and a saturated target cosine (exactly 1.0).  The
+loss is held within 1e-4, the bar tests/test_flash_aam.py holds the Pallas
+kernel to; top-1 and top-5 must be equal; the per-example online state
+(lse, zy, mx) within 1e-4 (logits are scaled by s=30, so that is ~3e-6 in
+cosine) and the rank count exactly.  Gradients are held at rtol 2e-3,
+atol 1e-6, the bar of tests/test_flash_aam.py's gradient tests.  The
+backward's raw outputs (dê, dW) are held against the Pallas backward within
+2e-4 of their largest entry: the random cases agree to ~1e-6 of it, but the
+margin case's aligned rows have sin θ ≈ 1e-4, where phi' = cos_m +
+sin_m·cos/sin turns a 1-ulp difference of cos into ~1e-4 of dê's scale (a
+component along ê, which the unprojection of the gradient removes).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pkr_tpu.ops import flash_aam as jax_flash
@@ -108,15 +116,71 @@ def test_online_topk_matches_dense_topk():
     assert float(acc5) * 64 == float(topk_correct(logits, lt, 5))
 
 
-def test_forward_only_raises_on_grad():
-    emb, w, labels = make()
+def _port_grads(fn, emb, w, labels, tile):
+    e = torch.from_numpy(emb).requires_grad_(True)
     wt = torch.from_numpy(w).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="_bwd_kernel"):
-        port_flash.flash_aam_loss_acc(torch.from_numpy(emb), wt, torch.from_numpy(labels))
-    with torch.no_grad():  # no graph is built: the eval head runs
-        loss, _, _ = port_flash.flash_aam_loss_acc(torch.from_numpy(emb), wt,
-                                                   torch.from_numpy(labels))
-    assert torch.isfinite(loss)
+    loss = fn(e, wt, torch.from_numpy(labels), tile)
+    loss.backward()
+    return float(loss), e.grad.numpy(), wt.grad.numpy()
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_gradient_parity(name):
+    """d loss / d (emb, weight) of the flash op, whose backward runs
+    flash_aam_bwd_plain here, against pkr_tpu's flash gradients (Pallas,
+    interpret mode) and the port's dense autograd."""
+    (emb, w, labels), tile = CASES[name]
+    r_emb, r_w = jax.grad(
+        lambda e, w_: jax_flash.flash_aam_loss(e, w_, jnp.asarray(labels), 0.2, 30.0,
+                                               tile, True),
+        argnums=(0, 1))(jnp.asarray(emb), jnp.asarray(w))
+    loss, g_emb, g_w = _port_grads(
+        lambda e, w_, y, t: port_flash.flash_aam_loss(e, w_, y, 0.2, 30.0, t),
+        emb, w, labels, tile)
+    _, d_emb, d_w = _port_grads(
+        lambda e, w_, y, t: port_flash.reference_aam_loss(e, w_, y, 0.2, 30.0),
+        emb, w, labels, tile)
+    assert np.isfinite(g_emb).all() and np.isfinite(g_w).all()
+    for got, ref in ((g_emb, r_emb), (g_w, r_w), (g_emb, d_emb), (g_w, d_w)):
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bwd_matches_pallas_bwd(name):
+    """(dê, dW) of flash_aam_bwd (its plain version on the CPU) against the
+    Pallas backward kernel's outputs, with a per-example gradient g."""
+    (emb, w, labels), tile = CASES[name]
+    e_hat_j, _ = jax_flash._normalize(jnp.asarray(emb))
+    lse_j = jax_flash._fwd_pallas(e_hat_j, jnp.asarray(w), jnp.asarray(labels), 0.2, 30.0,
+                                  tile, True)[0]
+    g = np.linspace(0.5, 1.5, len(labels)).astype(np.float32)
+    ref = jax_flash._bwd_pallas(e_hat_j, jnp.asarray(w), jnp.asarray(labels), lse_j,
+                                jnp.asarray(g), 0.2, 30.0, tile, True)
+    e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+    got = port_flash.flash_aam_bwd(e_hat, torch.from_numpy(w), torch.from_numpy(labels),
+                                   torch.tensor(np.asarray(lse_j)), torch.from_numpy(g),
+                                   0.2, 30.0, tile)
+    for gt, r in zip(got, ref):
+        r = np.asarray(r)
+        np.testing.assert_allclose(gt.numpy(), r, rtol=1e-4,
+                                   atol=2e-4 * float(np.abs(r).max()) + 1e-6)
+
+
+def test_forward_only_raises_on_grad():
+    """The forward-only guard is gone: with gradients enabled the op builds a
+    graph, the loss's gradients reach emb and weight, and the metrics carry
+    none.  Under no_grad (the eval head) no graph is built."""
+    emb, w, labels = make()
+    e = torch.from_numpy(emb).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    loss, acc, acc5 = port_flash.flash_aam_loss_acc(e, wt, torch.from_numpy(labels))
+    assert loss.requires_grad and not acc.requires_grad and not acc5.requires_grad
+    (loss + acc + acc5).backward()
+    assert torch.isfinite(e.grad).all() and float(e.grad.abs().max()) > 0
+    assert torch.isfinite(wt.grad).all() and float(wt.grad.abs().max()) > 0
+    with torch.no_grad():
+        loss2, _, _ = port_flash.flash_aam_loss_acc(e, wt, torch.from_numpy(labels))
+    assert not loss2.requires_grad and float(loss2) == float(loss)
 
 
 def test_wrapper_checks_inputs():
@@ -132,3 +196,20 @@ def test_wrapper_checks_inputs():
     before = port_flash.flash_aam_fwd.launches
     port_flash.flash_aam_fwd(e_hat, torch.from_numpy(w), torch.from_numpy(labels), zt)
     assert port_flash.flash_aam_fwd.launches == before  # CPU: plain version
+
+
+def test_bwd_wrapper_checks_inputs():
+    emb, w, labels = make()
+    e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+    wt, lt = torch.from_numpy(w), torch.from_numpy(labels)
+    lse, g = torch.zeros(16), torch.ones(16)
+    with pytest.raises(ValueError):
+        port_flash.flash_aam_bwd(e_hat, wt[:, :8], lt, lse, g)
+    with pytest.raises(ValueError):
+        port_flash.flash_aam_bwd(e_hat, wt, lt, lse[:3], g)
+    with pytest.raises(TypeError):
+        port_flash.flash_aam_bwd(e_hat, wt, lt, lse, g.double())
+    before = port_flash.flash_aam_bwd.launches
+    de, dw = port_flash.flash_aam_bwd(e_hat, wt, lt, lse, g)
+    assert de.shape == e_hat.shape and dw.shape == wt.shape
+    assert port_flash.flash_aam_bwd.launches == before  # CPU: plain version

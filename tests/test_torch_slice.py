@@ -34,7 +34,7 @@ from pkr_tpu.train.loop import make_eval_step as jax_make_eval_step
 from pkr_tpu_torch.convert import state_dict_from_flax
 from pkr_tpu_torch.eval import compute_eer, cosine_scores, extract_embeddings
 from pkr_tpu_torch.models import SpeakerModel
-from pkr_tpu_torch.train import make_eval_step
+from pkr_tpu_torch.train import make_eval_step, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPK = 12
@@ -134,7 +134,8 @@ def test_package_imports_neither_jax_nor_pkr_tpu():
     assert int(proc.stdout.split()[-1]) >= 15  # every submodule was imported
 
 
-@pytest.mark.parametrize("call", ["frontend", "model", "eval_step", "scores"])
+@pytest.mark.parametrize("call", ["frontend", "model", "eval_step", "train_step",
+                                  "scores"])
 def test_entry_points_raise_without_a_card(call, monkeypatch):
     """device=None means the card; where there is none, raise instead of
     quietly running on the CPU."""
@@ -148,6 +149,9 @@ def test_entry_points_raise_without_a_card(call, monkeypatch):
         elif call == "eval_step":
             tm = SpeakerModel(SPK, 40, loss="AAM", trunk="tiny_resnet", device="cpu")
             make_eval_step(tm, flash_aam=True)
+        elif call == "train_step":
+            tm = SpeakerModel(SPK, 40, loss="AAM", trunk="tiny_resnet", device="cpu")
+            make_train_step(tm, flash_aam=True)
         else:
             v = {"a": np.ones(4, np.float32), "b": np.ones(4, np.float32)}
             cosine_scores(v, v, [("a", "b")])
