@@ -8,12 +8,15 @@ Run from the root of a checkout, with no arguments:
 Phases, one JSON line each:
   env     the card's name, count and power limit (nvidia-smi);
   build   nvcc builds every kernel of the paths from csrc/, one nvcc per
-          source, all at once (seconds, ptxas registers and shared memory);
+          source, all at once (seconds, ptxas registers and shared memory,
+          and the tensor-core HMMA instructions cuobjdump finds in each);
   kernel  each kernel against its plain PyTorch version on the card, at the
           shapes of the paths and beyond (a gradient row by row, each row
           within 1e-3 of its own norm, with planted faults the check must
-          reject), with its time, the plain version's time, a dense library
-          yardstick's time and its roofline bound;
+          reject; the backward also with every target p ≈ 0.993 against the
+          plain version in f64, at D = 37, and twice for the same bits), with
+          its time, the plain version's time, a dense library yardstick's
+          time and two roofline bounds (f32 CUDA cores; 3×TF32 tensor cores);
   slice   the serving path at full width — 128 six-second utterances through
           wav_to_train_feats → ResNet-34 SpeakerModel (7325-speaker AAM head,
           seeded random weights) → extract_embeddings → the flash eval step →
@@ -42,10 +45,11 @@ import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, dense bf16 on the
-# tensor cores, and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, dense bf16 and
+# TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 KERNELS = ("flash_aam_fwd", "flash_aam_bwd")
 
@@ -127,23 +131,27 @@ def device_ms(torch, fn, iters, only=None):
     return sum(by_name.values()), n / iters, [[k[:80], v] for k, v in top]
 
 
-def flash_bound(B, C, D):
-    """Least time for (lse, zy, mx, cnt): 2·B·C·D f32 operations on the CUDA
-    cores against reading e, W, labels, zt once and writing four (B,) f32."""
-    flops = 2.0 * B * C * D
-    nbytes = 4.0 * (B * D + C * D + 2 * B + 4 * B)
+def _bounds(flops, nbytes):
+    """(bound ms, what bounds it) on the f32 CUDA cores, and the bound ms of
+    the same products in 3×TF32 on the tensor cores (three TF32 operations
+    per f32 operation at the dense TF32 peak), each against the bytes."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_tc = 3 * flops / PEAK_TF32_FLOPS
+    return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"),
+            1e3 * max(t_tc, t_bytes))
+
+
+def flash_bound(B, C, D):
+    """Least time for (lse, zy, mx, cnt): 2·B·C·D f32 operations against
+    reading e, W, labels, zt once and writing four (B,) f32."""
+    return _bounds(2.0 * B * C * D, 4.0 * (B * D + C * D + 2 * B + 4 * B))
 
 
 def flash_bwd_bound(B, C, D):
     """Least time for (dê, dW): 6·B·C·D f32 operations (the cosine product,
     a·ŵ and aᵀe) against reading e, W, labels, lse, g once and writing dê
     and dW."""
-    flops = 6.0 * B * C * D
-    nbytes = 4.0 * (2 * (B * D + C * D) + 3 * B)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bounds(6.0 * B * C * D, 4.0 * (2 * (B * D + C * D) + 3 * B))
 
 
 def resnet34_train_flops(batch, feat_dim, frames):
@@ -180,6 +188,18 @@ def phase_env(torch):
     return smi_line
 
 
+def hmma_count(lib):
+    """HMMA (tensor-core matrix) instructions in a built library's SASS."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed on {lib}: {out.stderr[-2000:]}")
+    return sum(1 for line in out.stdout.splitlines() if " HMMA." in line)
+
+
 def phase_build():
     from pkr_tpu_torch.ops import _native
 
@@ -189,11 +209,17 @@ def phase_build():
     for name in KERNELS:
         _native.load(name)
         info = _native.BUILD_INFO[name]
+        hmma = hmma_count(info["path"])
         emit({"phase": "build", "kernel": name, "seconds": info["seconds"],
-              "wall_seconds_all": wall, "ptxas": info["ptxas"]})
+              "wall_seconds_all": wall, "ptxas": info["ptxas"], "hmma_instructions": hmma})
+        if name == "flash_aam_bwd":  # the 3×TF32 backward runs on the tensor cores
+            check(hmma > 0, "the backward library has no HMMA instruction")
 
 
-def _flash_inputs(torch, B, C, D, seed, saturated=False):
+CONFIDENT_COS = 0.68  # target cosine of the confident case: target p ≈ 0.993
+
+
+def _flash_inputs(torch, B, C, D, seed, saturated=False, confident=False):
     dev = torch.device("cuda")
     if saturated:
         # cos(target) exactly 1.0: a one-hot embedding equals a normalized
@@ -209,6 +235,15 @@ def _flash_inputs(torch, B, C, D, seed, saturated=False):
     g = torch.Generator(device=dev).manual_seed(seed)
     w = torch.randn((C, D), generator=g, device=dev)
     labels = torch.randint(0, C, (B,), generator=g, device=dev)
+    if confident:
+        # each embedding at cosine CONFIDENT_COS to its class row (a random
+        # unit direction orthogonal to it makes up the rest): with C = 7325
+        # and D = 256 every target p is ≈ 0.993, so a = p − 1 cancels
+        w_y = w[labels] / w[labels].norm(dim=1, keepdim=True)
+        u = torch.randn((B, D), generator=g, device=dev)
+        u = u - (u * w_y).sum(dim=1, keepdim=True) * w_y
+        u = u / u.norm(dim=1, keepdim=True)
+        return CONFIDENT_COS * w_y + (1 - CONFIDENT_COS ** 2) ** 0.5 * u, w, labels
     # embeddings half-way to their class (target cosine ≈ 0.45): the target
     # wins for some rows and loses for others, so top-1/top-5 are exercised
     emb = 0.5 * w[labels] + torch.randn((B, D), generator=g, device=dev)
@@ -273,12 +308,12 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
                 torch, fn, iters, only)
             row[f"{tag}_call_ms"] = call_ms(torch, fn, iters)
         check(row["kernel_ms"] is not None, f"{name}: the trace shows no kernel time")
-        row["bound_ms"], row["bound_by"] = flash_bound(B, C, D)
+        row["bound_ms"], row["bound_by"], row["bound_tc_ms"] = flash_bound(B, C, D)
     emit(row)
     return row
 
 
-BWD_KERNELS = ("bwd_dw_kernel", "bwd_de_partial_kernel", "bwd_de_sum_kernel")
+BWD_KERNELS = ("bwd_tiles_kernel", "bwd_de_sum_kernel")
 ROW_TOL = 1e-3
 
 
@@ -320,15 +355,22 @@ def planted_faults(torch, got, ref, labels=None):
             for k, f in faults.items()}
 
 
-def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True):
+def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True,
+                         confident=False, repeat=False):
     """flash_aam_bwd against flash_aam_bwd_plain, on dê and on dW: every row
     within ROW_TOL of its own norm (row_rel_err), and max|Δ| ≤
     1e-3·max|ref| + 1e-6 over the tensor (the kernel and cuBLAS sum in
     different orders, and dz/dcos magnifies cosine rounding near cos = ±1).
-    Planted faults in the kernel's output must fail the row check."""
+    Planted faults in the kernel's output must fail the row check.
+
+    `confident` puts every target p near 0.993, where a = p − 1 cancels and
+    s·Δcos/(1 − p) magnifies any rounding of a cosine ~4000×: there the f32
+    plain version is itself ~3e-3 off, so the kernel is held to the plain
+    version run in f64 (the f32 plain version's own row error is reported).
+    `repeat` also checks that a second call gives the same bits."""
     from pkr_tpu_torch.ops import flash_aam as fa
 
-    emb, w, labels = _flash_inputs(torch, B, C, D, seed, saturated)
+    emb, w, labels = _flash_inputs(torch, B, C, D, seed, saturated, confident)
     e_hat, _ = fa._normalize(emb)
     zt = fa._margined_target_z(e_hat, w, labels, 0.2, 30.0)
     lse = fa.flash_aam_fwd(e_hat, w, labels, zt)[0]
@@ -338,6 +380,21 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
     ref = fa.flash_aam_bwd_plain(e_hat, w, labels, lse, g)
     row = {"phase": "kernel", "kernel": "flash_aam_bwd", "case": name, "B": B, "C": C,
            "D": D, "tol": {"row_rel": ROW_TOL, "max_abs": "1e-3*max|ref| + 1e-6"}}
+    if confident:
+        p_t = torch.exp(zt - lse)
+        row["target_p"] = {"min": float(p_t.min()), "median": float(p_t.median())}
+        check(float(p_t.min()) >= 0.99, f"{name}: target p {row['target_p']} below 0.99")
+        ref64 = fa.flash_aam_bwd_plain(e_hat.double(), w.double(), labels, lse.double(),
+                                       g.double())
+        row["plain_f32_row_rel_err"] = {"de": row_rel_err(torch, ref[0], ref64[0]),
+                                        "dw": row_rel_err(torch, ref[1], ref64[1])}
+        row["reference"] = "flash_aam_bwd_plain in f64"
+        ref = ref64
+    if repeat:
+        again = fa.flash_aam_bwd(e_hat, w, labels, lse, g)
+        row["same_bits_twice"] = bool(torch.equal(got[0], again[0]) and
+                                      torch.equal(got[1], again[1]))
+        check(row["same_bits_twice"], f"{name}: two calls gave different bits")
     for tag, gt, r, lab in (("de", got[0], ref[0], None), ("dw", got[1], ref[1], labels)):
         err, scale = float((gt - r).abs().max()), float(r.abs().max())
         rel = row_rel_err(torch, gt, r)
@@ -376,7 +433,7 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
                 torch, fn, iters, only)
             row[f"{tag}_call_ms"] = call_ms(torch, fn, iters)
         check(row["kernel_ms"] is not None, f"{name}: the trace shows no kernel time")
-        row["bound_ms"], row["bound_by"] = flash_bwd_bound(B, C, D)
+        row["bound_ms"], row["bound_by"], row["bound_tc_ms"] = flash_bwd_bound(B, C, D)
     emit(row)
     return row
 
@@ -392,10 +449,15 @@ def phase_kernel(torch):
                                  timed=False))
     bwd_cases = [("train_b256", TRAIN_B, SPK, True), ("path_b1024", 1024, SPK, True),
                  ("scale_c131072", 256, 131072, True), ("ragged", 100, 7001, True)]
-    bwd_rows = [check_flash_bwd_case(torch, name, B, C, D, seed=20 + i, timed=timed)
+    bwd_rows = [check_flash_bwd_case(torch, name, B, C, D, seed=20 + i, timed=timed,
+                                     repeat=(i == 0))
                 for i, (name, B, C, timed) in enumerate(bwd_cases)]
     bwd_rows.append(check_flash_bwd_case(torch, "saturated", 4, 300, D, seed=29,
                                          saturated=True, timed=False))
+    bwd_rows.append(check_flash_bwd_case(torch, "confident", TRAIN_B, SPK, D, seed=30,
+                                         timed=False, confident=True))
+    bwd_rows.append(check_flash_bwd_case(torch, "ragged_depth", 100, 7001, 37, seed=31,
+                                         timed=False))
     return rows, bwd_rows
 
 
@@ -672,6 +734,7 @@ def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys):
             "max_abs_err": max(max(r[k] for k in err_keys) for r in rows),
             "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "bound_tc_ms": main_row["bound_tc_ms"],
             "library_ms": main_row["library_ms"],
             "shape": {"B": main_row["B"], "C": main_row["C"], "D": main_row["D"]},
             "ok": True}

@@ -11,43 +11,87 @@
 // where dz/dcos is s off the target and s * phi'(cos) on it, with
 // phi' = cos_m - sin_m * dsin inside the margin branch and 1 outside, and
 // dsin = -cos / sin, set to 0 where 1 - cos^2 < 1e-12 (the sin clip, through
-// which the dense head's autograd passes no gradient).  The cosines come from
-// the same dot_tile and margin code as the forward kernel
-// (flash_aam_common.cuh), so p is consistent with the forward's lse.
+// which the dense head's autograd passes no gradient).  The margin and the
+// clip are the forward's code (flash_aam_common.cuh: margined).
 //
 // What bounds it: the minimal work is 6*B*C*D f32 operations (the cosine
 // product, then a . w_hat and a^T . e) against (B + C) * D f32 inputs and
-// outputs.  At B=256, C=7325, D=256 that is 2.9 GFLOP (43 us at the H100's
-// 67 TFLOP/s f32 CUDA-core peak) against 15 MB (4.6 us at 3.35 TB/s):
-// compute-bound in f32.  The products stay at f32 accuracy, on f32 FMAs.
+// outputs.  At B=256, C=7325, D=256 that is 2.9 GFLOP against 15 MB (4.6 us
+// at 3.35 TB/s): compute-bound.  On the f32 CUDA cores (67 TFLOP/s) that is
+// 43 us.  This kernel runs the products on the tensor cores in 3xTF32
+// (mma_tf32x3.cuh), three TF32 products per f32 product, so its floor is
+// 18*B*C*D operations at 495 TFLOP/s: 17.5 us at that shape.  bf16 or a
+// single TF32 product is not accurate enough: cosines near +-1 feed the
+// margin, and p = exp(s*z - lse) turns a cosine error into s times it.
+// On the card the MMAs are not what sets the pace: splitting each operand
+// into TF32 parts (five instructions a value), the epilogue and the waits
+// between phases take most of the time (see PERF.md).
 //
 // Design.  The TPU kernel walks the class tiles in order on one core and
-// carries de in VMEM across its grid.  Here blocks run in parallel and nothing
-// carries over, and the two reductions run different ways: dw reduces over
-// the batch, de over the classes.  So there are two kernels, neither with
-// float atomics, both deterministic:
-//   bwd_dw_kernel: one block per 64-class tile loops over all batch tiles,
-//     recomputes each 64x64 tile of a into shared memory and accumulates its
-//     (64 x D) dw_hat tile in registers; it holds whole rows of dw_hat, so it
-//     applies the row projection and writes dW once.
-//   bwd_de_partial_kernel: blocks over (batch tiles) x (class splits)
-//     recompute the a tiles of their split and accumulate a (64 x D) de
-//     tile; bwd_de_sum_kernel then adds the splits' partials in split order.
-// The cosine tiles are computed twice, so the kernels do 8*B*C*D operations
-// against the minimal 6*B*C*D; a fused design is later work.  D is at most
-// 256 (one register tile of a row); the wrapper checks it.
+// carries de in VMEM across its grid.  Here blocks run in parallel and
+// nothing carries over, and the two reductions run different ways: dw reduces
+// over the batch, de over the classes.  So there are two passes, neither with
+// float atomics, both deterministic (two calls give the same bits), run by
+// one launch of bwd_tiles_kernel (two blocks resident per SM):
+//   the dW pass (dw_block): one block per 32-class tile (229 at C=7325)
+//     keeps its W tile in shared memory, loops over the 32-row batch tiles
+//     (the next one's cp.async copy in flight while the current one's MMAs
+//     run), recomputes each 32x32 tile of a into shared memory and
+//     accumulates dw_hat (32 x D) in registers; it owns whole rows, so it
+//     applies the row projection and writes dW once;
+//   the de pass (de_block): one block per (32-row batch tile, class split)
+//     keeps its e tile, streams its split's W tiles (double-buffered the
+//     same way) and accumulates a (32 x D) de partial; bwd_de_sum_kernel
+//     then adds the splits' partials in split order.
+// Each pass recomputes the cosine tiles, so they issue 8*B*C*D f32-product
+// operations (24*B*C*D in TF32) against the minimal 6*B*C*D.  In both, each
+// warp computes a 16x16 quadrant of a 32x32 cosine tile over half the
+// depth, and the two halves are summed through shared memory, the pair of
+// warps meeting at a barrier of their own (cosine_dots); then warp w
+// computes the 32 x 32 output columns [32 w, 32 w + 32) of the second
+// product.  The de pass takes the norms of the next W tile while the second
+// product runs, so no block-wide barrier sits inside the cosine.
+// 1/||w|| is computed once per W row of a staged tile (the sum of squares
+// in f32 on the CUDA cores, ||w|| = sqrt(max(sum w^2, 1e-24)) as the
+// forward, its reciprocal rounded once); the cosine is
+// (e . w) * (1/||w||), de folds 1/||w|| into a (a * (1/||w||)) instead of
+// scaling every staged W element, and the a tile is split into its TF32
+// parts once, where it is formed, not by every warp that reads it.
+//
+// Numerics against the forward.  The forward sums e . w on f32 FMAs in depth
+// order; this kernel sums 3xTF32 products in another order, so a cosine
+// differs by about 1e-7 and p = exp(z - lse) by about s * 1e-7 = 3e-6 of
+// itself: the size of the gap the plain version (cuBLAS) already has.  A
+// saturated cosine stays exact: 1.0 and 2.0 split into TF32 with no
+// remainder, and 1/||w|| = 0.5.  Near the sin clip (1 - cos^2 -> 1e-12)
+// phi' grows as sin_m * cos / sin, so there a one-ulp difference between
+// this cosine and the forward's moves p by up to ~1e-3; computing the
+// forward on the same engine makes the two agree again.
+//
+// D is at most 256, padded to a power of two (at least 32) in shared memory
+// with zeros.
+// Rows of e and W whose length is a multiple of 4 are staged with 16-byte
+// cp.async copies; other D take 4-byte copies (VEC = 1).
 
 #include "flash_aam_common.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
-using namespace flash_aam;
+using flash_aam::FULL;
+using flash_aam::Margin;
+using flash_aam::margined;
+using tf32x3::K_ROWS;
+using tf32x3::MK_ROWS;
+using tf32x3::at;
 
-constexpr int DMAX = NTHREADS;        // the staging loads one depth per thread
-constexpr int DPT = DMAX / 16;        // depths per thread in the D-wide tiles
-constexpr int RPT = 4;                // rows (or classes) per thread there
+constexpr int TB = 32;          // batch rows per tile
+constexpr int TC = 32;          // classes per tile
+constexpr int DMAX = 256;       // largest depth
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
 
-static_assert(16 * RPT == BM && BM == BN, "accumulator tile");
+static_assert(TB == 32 && TC == 32 && WARPS == 8, "warp tiling below");
 
 // dL/dcos times g for one logit: (p - onehot) * dz/dcos * g.
 __device__ __forceinline__ float dlogit(float cos, bool is_tgt, float lse, float g,
@@ -67,179 +111,317 @@ __device__ __forceinline__ float dlogit(float cos, bool is_tgt, float lse, float
   return __fmul_rn(__fmul_rn(__fsub_rn(p, is_tgt ? 1.0f : 0.0f), dz), g);
 }
 
-// The 64x64 tile of a for rows row0.. and classes col0.., zero outside B and C,
-// written to shared memory as at[row][class] (TRANSPOSED = false) or
-// at[class][row] (true).  Leaves wsq holding the tile's W row sums of squares.
-template <bool TRANSPOSED>
-__device__ __forceinline__ void a_tile(const float* __restrict__ e,
-                                       const float* __restrict__ w,
-                                       const int* __restrict__ labels,
-                                       const float* __restrict__ lse,
-                                       const float* __restrict__ g, int B, int C, int D,
-                                       int row0, int col0, const Margin& mg,
-                                       float (*As)[BM], float (*Bs)[BN], float* wsq,
-                                       float (*at)[BN]) {
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[TM][TN];
-  dot_tile(e, w, B, C, D, row0, col0, As, Bs, wsq, acc);
+// rinv[c] = 1 / ||W row c|| of a staged TC-row tile, ||w|| =
+// sqrt(max(sum w^2, 1e-24)) as the forward's row_norm: 8 threads a row sum
+// every 8th square in f32, a fixed butterfly adds them, and the reciprocal
+// square root is rounded once (__frsqrt_rn).  Other threads see it after
+// the next __syncthreads.
+__device__ __forceinline__ void tile_rnorms(const float* ws, int ld, float* rinv) {
+  const int r = threadIdx.x >> 3;
+  const int part = threadIdx.x & 7;
+  float sq = 0.0f;
+  for (int c = part; c < ld; c += 8) {
+    const float v = ws[at(r, c, ld)];
+    sq = fmaf(v, v, sq);
+  }
+  sq += __shfl_xor_sync(FULL, sq, 4);
+  sq += __shfl_xor_sync(FULL, sq, 2);
+  sq += __shfl_xor_sync(FULL, sq, 1);
+  if (part == 0) rinv[r] = __frsqrt_rn(fmaxf(sq, 1e-24f));
+}
+
+// The 16x8 tile of the 32x32 tile e . w^T that this warp finishes: rows
+// 16 * (w % 4 / 2).., classes 8 * cosine_ntile(w)...  Warp w computes the
+// 16x16 quadrant w % 4 over half the depth (w / 4), keeps the 16x8 half that
+// cosine_ntile names and hands the other to the warp w ^ 4 of the same
+// quadrant, through xch (8 x 4 x 32 floats).  Each 16-deep chunk's MMAs
+// start from zero and their sum is added to the running f32 sum with a
+// rounded add: the tensor cores never add a small term to a large sum, and
+// the cosine's error is that of rounded f32 sums of DP / 32 chunk sums.
+// The two warps of a quadrant meet at named barrier 1 + quadrant; nothing
+// else waits, so the caller publishes other shared data with __syncthreads.
+__device__ __forceinline__ int cosine_ntile(int warp) { return 2 * (warp & 1) + (warp >> 2); }
+
+__device__ __forceinline__ void cosine_dots(float (&dot)[4], const float* es, const float* ws,
+                                            int DP, float* xch) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int quad = warp & 3;
+  const int kh = warp >> 2;
+  const int k0 = kh * (DP / 2);
+  float sum[1][2][4] = {};
+#pragma unroll 2
+  for (int kc = 0; kc < DP / 2; kc += 16) {
+    float chunk[1][2][4] = {};
+    tf32x3::warp_mma_k16<1, 2>(chunk, es, DP, 16 * (quad >> 1), ws, DP, 16 * (quad & 1),
+                               k0 + kc);
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    const bool row_ok = r < B;
-    const int lab = row_ok ? labels[r] : -1;
-    const float lse_r = row_ok ? lse[r] : 0.0f;
-    const float g_r = row_ok ? g[r] : 0.0f;
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = col0 + tx * TN + j;
+      for (int q = 0; q < 4; ++q) sum[0][j][q] = __fadd_rn(sum[0][j][q], chunk[0][j][q]);
+  }
+  // keep n-tile kh of the quadrant, hand n-tile 1 - kh to the other half
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    dot[q] = kh ? sum[0][1][q] : sum[0][0][q];
+    xch[(warp * 4 + q) * 32 + lane] = kh ? sum[0][0][q] : sum[0][1][q];
+  }
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + quad) : "memory");
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    dot[q] = __fadd_rn(dot[q], xch[((warp ^ 4) * 4 + q) * 32 + lane]);
+}
+
+// Label, lse and g of the two batch rows whose logits this thread forms
+// (rows row0 + 16 * (w % 4 / 2) + lane / 4 + {0, 8}); label -1 past B.
+struct Rows {
+  int lab[2];
+  float lse[2], g[2];
+};
+
+__device__ __forceinline__ Rows row_data(const int* __restrict__ labels,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ g, int B, int row0) {
+  Rows rd;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 16 * ((threadIdx.x >> 5 & 3) >> 1) + ((threadIdx.x & 31) >> 2) + 8 * h;
+    const bool ok = r < B;
+    rd.lab[h] = ok ? labels[r] : -1;
+    rd.lse[h] = ok ? lse[r] : 0.0f;
+    rd.g[h] = ok ? g[r] : 0.0f;
+  }
+  return rd;
+}
+
+// The 32x32 tile of a for the rows of rd and classes col0.. from this
+// warp's 16x8 cosine tile (cosine_dots), cos = dot * (1 / ||w||), split into
+// TF32 big and small parts in the swizzled at_big[row][class] and
+// at_small[row][class] (0 outside B and C); SCALE folds 1/||w|| into a.
+// The caller syncs before reading them.
+template <bool SCALE>
+__device__ __forceinline__ void a_tile(const float (&dot)[4], const float* rinv,
+                                       const Rows& rd, int C, int col0, const Margin& mg,
+                                       float* at_big, float* at_small) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * ((warp & 3) >> 1) + (lane >> 2) + 8 * h;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int cls = 8 * cosine_ntile(warp) + 2 * (lane & 3) + q;
+      const int c = col0 + cls;
       float a = 0.0f;
-      if (row_ok && c < C)
-        a = dlogit(cosine(acc[i][j], wsq[tx * TN + j]), c == lab, lse_r, g_r, mg);
-      if (TRANSPOSED) at[tx * TN + j][ty * TM + i] = a;
-      else at[ty * TM + i][tx * TN + j] = a;
+      if (rd.lab[h] >= 0 && c < C) {
+        const float ri = rinv[cls];
+        a = dlogit(__fmul_rn(dot[2 * h + q], ri), c == rd.lab[h], rd.lse[h], rd.g[h], mg);
+        if (SCALE) a = __fmul_rn(a, ri);
+      }
+      const tf32x3::Split sp = tf32x3::split(a);
+      at_big[at(row, cls, TC)] = __uint_as_float(sp.big);
+      at_small[at(row, cls, TC)] = __uint_as_float(sp.small);
     }
   }
+}
+
+// The dW pass, one block per TC-class tile: dw_hat = a^T e over every batch
+// tile, then dW = (dw_hat - (dw_hat . w_hat) w_hat) / ||w||.  Warp w
+// accumulates the classes x depths [32 w, 32 w + 32) of dw_hat.
+template <int VEC>
+__device__ __forceinline__ void dw_block(float* smem, int tile, const float* __restrict__ e,
+                                         const float* __restrict__ w,
+                                         const int* __restrict__ labels,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ g, int B, int C, int D,
+                                         int DP, const Margin& mg, float* __restrict__ dw) {
+  float* ws = smem;                    // [TC][DP]
+  float* es0 = ws + TC * DP;           // [TB][DP], even batch tiles
+  float* es1 = es0 + TB * DP;          // [TB][DP], odd batch tiles
+  float* at_big = es1 + TB * DP;       // [TB][TC]
+  float* at_small = at_big + TB * TC;  // [TB][TC]
+  float* rinv = at_small + TB * TC;    // [TC]
+  float* projp = rinv + TC;            // [WARPS][TC]
+  float* xch = projp + WARPS * TC;     // [WARPS][4][32]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int col0 = tile * TC;
+  const int n_bt = (B + TB - 1) / TB;
+  const bool has_cols = 32 * warp < DP;
+
+  tf32x3::stage_rows<VEC>(ws, DP, w, D, col0, TC, C, D);
+  tf32x3::stage_rows<VEC>(es0, DP, e, D, 0, TB, B, D);
+  tf32x3::commit();
+  tf32x3::wait_pending<0>();
   __syncthreads();
-}
+  tile_rnorms(ws, DP, rinv);
 
-// One block per 64-class tile: dw_hat = a^T e over every batch tile, then
-// dW = (dw_hat - (dw_hat . w_hat) w_hat) / ||w||.  Thread (cg, dg) owns
-// classes cg*4 .. +3 at depths dg + 16 j.
-__global__ void __launch_bounds__(NTHREADS)
-bwd_dw_kernel(const float* __restrict__ e, const float* __restrict__ w,
-              const int* __restrict__ labels, const float* __restrict__ lse,
-              const float* __restrict__ g, int B, int C, int D, Margin mg,
-              float* __restrict__ dw) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ float wsq[BN];
-  __shared__ __align__(16) float at[BM][BN];   // a[row][class]
-  __shared__ float es[BK][DMAX];               // 16 rows of e
+  float acc[2][4][4] = {};
+  for (int bt = 0; bt < n_bt; ++bt) {
+    const float* ecur = (bt & 1) ? es1 : es0;
+    tf32x3::wait_pending<0>();
+    __syncthreads();  // tile bt has landed, and every warp is done with tile bt - 1
+    if (bt + 1 < n_bt) {
+      tf32x3::stage_rows<VEC>((bt & 1) ? es0 : es1, DP, e, D, (bt + 1) * TB, TB, B, D);
+      tf32x3::commit();
+    }
+    const Rows rd = row_data(labels, lse, g, B, bt * TB);
 
-  const int tid = threadIdx.x;
-  const int cg = tid / 16;
-  const int dg = tid % 16;
-  const int col0 = blockIdx.x * BN;
-  float acc[RPT][DPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[k][j] = 0.0f;
+    float dot[4];
+    cosine_dots(dot, ecur, ws, DP, xch);
+    a_tile<false>(dot, rinv, rd, C, col0, mg, at_big, at_small);
+    __syncthreads();
+    if (has_cols)
+      tf32x3::warp_mma_k32<K_ROWS>(acc, at_big, at_small, ecur, DP, 32 * warp);
+  }
 
-  for (int row0 = 0; row0 < B; row0 += BM) {
-    a_tile<false>(e, w, labels, lse, g, B, C, D, row0, col0, mg, As, Bs, wsq, at);
-    for (int rr0 = 0; rr0 < BM; rr0 += BK) {
+  // acc[i][j][q] holds class 16 i + lane / 4 + 8 (q / 2) at depth
+  // 32 warp + 8 j + 2 (lane % 4) + q % 2
+  float what[2][4][4];
 #pragma unroll
-      for (int q = 0; q < BK; ++q) {
-        const int r = row0 + rr0 + q;
-        es[q][tid] = (r < B && tid < D) ? e[(size_t)r * D + tid] : 0.0f;
-      }
-      __syncthreads();
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int q = 0; q < BK; ++q) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&at[rr0 + q][cg * RPT]);
-        const float av[RPT] = {a4.x, a4.y, a4.z, a4.w};
+    for (int h = 0; h < 2; ++h) {
+      const int cls = 16 * i + (lane >> 2) + 8 * h;
+      float proj = 0.0f;
 #pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          const float ev = es[q][dg + 16 * j];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int k = 0; k < RPT; ++k) acc[k][j] = fmaf(av[k], ev, acc[k][j]);
+        for (int q = 0; q < 2; ++q) {
+          const int d = 32 * warp + 8 * j + 2 * (lane & 3) + q;
+          const float v = has_cols ? __fmul_rn(ws[at(cls, d, DP)], rinv[cls]) : 0.0f;
+          what[i][j][2 * h + q] = v;
+          proj = fmaf(acc[i][j][2 * h + q], v, proj);
         }
-      }
-      __syncthreads();  // es and, after the last chunk, at are free again
+      // the 4 lanes of a class are neighbours in the warp
+      proj += __shfl_xor_sync(FULL, proj, 1);
+      proj += __shfl_xor_sync(FULL, proj, 2);
+      if ((lane & 3) == 0) projp[warp * TC + cls] = proj;
     }
-  }
-
-  // wsq still holds this class tile's sums of squares (every a_tile call
-  // rewrote the same values)
+  __syncthreads();
+  if (!has_cols) return;
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int cl = cg * RPT + k;
-    const int c = col0 + cl;
-    const float wn = row_norm(wsq[cl]);
-    float what[DPT];
-    float proj = 0.0f;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = dg + 16 * j;
-      what[j] = (c < C && d < D) ? w[(size_t)c * D + d] / wn : 0.0f;
-      proj = fmaf(acc[k][j], what[j], proj);
+    for (int h = 0; h < 2; ++h) {
+      const int cls = 16 * i + (lane >> 2) + 8 * h;
+      const int c = col0 + cls;
+      if (c >= C) continue;
+      float proj = 0.0f;
+      for (int k = 0; k < WARPS; ++k) proj += projp[k * TC + cls];
+      const float ri = rinv[cls];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int d = 32 * warp + 8 * j + 2 * (lane & 3) + q;
+          const int idx = 2 * h + q;
+          if (d < D)
+            dw[(size_t)c * D + d] =
+                __fmul_rn(__fsub_rn(acc[i][j][idx], __fmul_rn(proj, what[i][j][idx])), ri);
+        }
     }
-    // the 16 threads of a class are lanes dg = 0..15 of one half-warp
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) proj += __shfl_xor_sync(FULL, proj, off);
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = dg + 16 * j;
-      if (c < C && d < D)
-        dw[(size_t)c * D + d] = (acc[k][j] - proj * what[j]) / wn;
-    }
-  }
 }
 
-// Blocks over (batch tile, class split): part[split] = a[rows, split] w_hat.
-// Thread (rg, dg) owns rows rg*4 .. +3 at depths dg + 16 j.
-__global__ void __launch_bounds__(NTHREADS)
-bwd_de_partial_kernel(const float* __restrict__ e, const float* __restrict__ w,
-                      const int* __restrict__ labels, const float* __restrict__ lse,
-                      const float* __restrict__ g, int B, int C, int D,
-                      int tiles_per_split, Margin mg, float* __restrict__ part) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
-  __shared__ float wsq[BN];
-  __shared__ __align__(16) float at[BN][BM];   // a[class][row]
-  __shared__ float ws[BK][DMAX];               // 16 rows of w_hat
+// The de pass, one block per (batch tile, class split): part[split] =
+// a[rows, split] w_hat.  Warp w accumulates the rows x depths
+// [32 w, 32 w + 32) of the partial.
+template <int VEC>
+__device__ __forceinline__ void de_block(float* smem, int row_tile, int split,
+                                         const float* __restrict__ e,
+                                         const float* __restrict__ w,
+                                         const int* __restrict__ labels,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ g, int B, int C, int D,
+                                         int DP, int tiles_per_split, const Margin& mg,
+                                         float* __restrict__ part) {
+  float* es = smem;                    // [TB][DP]
+  float* ws0 = es + TB * DP;           // [TC][DP], even class tiles of the split
+  float* ws1 = ws0 + TC * DP;          // [TC][DP], odd ones
+  float* at_big = ws1 + TC * DP;       // [TB][TC]
+  float* at_small = at_big + TB * TC;  // [TB][TC]
+  float* rinv0 = at_small + TB * TC;   // [TC], 1 / ||w|| of ws0's classes
+  float* rinv1 = rinv0 + TC;           // [TC], of ws1's
+  float* xch = rinv1 + TC;             // [WARPS][4][32]
 
-  const int tid = threadIdx.x;
-  const int rg = tid / 16;
-  const int dg = tid % 16;
-  const int row0 = blockIdx.x * BM;
-  const int split = blockIdx.y;
-  const int n_tiles = (C + BN - 1) / BN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = row_tile * TB;
+  const int n_tiles = (C + TC - 1) / TC;
   const int tile_lo = split * tiles_per_split;
   const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
-  float acc[RPT][DPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[k][j] = 0.0f;
+  const bool has_cols = 32 * warp < DP;
 
+  tf32x3::stage_rows<VEC>(es, DP, e, D, row0, TB, B, D);
+  tf32x3::stage_rows<VEC>(ws0, DP, w, D, tile_lo * TC, TC, C, D);
+  tf32x3::commit();
+
+  const Rows rd = row_data(labels, lse, g, B, row0);
+  tf32x3::wait_pending<0>();
+  __syncthreads();
+  tile_rnorms(ws0, DP, rinv0);
+
+  float acc[2][4][4] = {};
   for (int t = tile_lo; t < tile_hi; ++t) {
-    const int col0 = t * BN;
-    a_tile<true>(e, w, labels, lse, g, B, C, D, row0, col0, mg, As, Bs, wsq, at);
-    for (int cc0 = 0; cc0 < BN; cc0 += BK) {
-#pragma unroll
-      for (int q = 0; q < BK; ++q) {
-        const int c = col0 + cc0 + q;
-        ws[q][tid] = (c < C && tid < D) ? w[(size_t)c * D + tid] / row_norm(wsq[cc0 + q])
-                                        : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < BK; ++q) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&at[cc0 + q][rg * RPT]);
-        const float av[RPT] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          const float wv = ws[q][dg + 16 * j];
-#pragma unroll
-          for (int k = 0; k < RPT; ++k) acc[k][j] = fmaf(av[k], wv, acc[k][j]);
-        }
-      }
-      __syncthreads();  // ws and, after the last chunk, at and wsq are free again
+    const bool odd = (t - tile_lo) & 1;
+    const float* wcur = odd ? ws1 : ws0;
+    __syncthreads();  // tile t and its norms are ready, and every warp is done with t - 1
+    if (t + 1 < tile_hi) {
+      tf32x3::stage_rows<VEC>(odd ? ws0 : ws1, DP, w, D, (t + 1) * TC, TC, C, D);
+      tf32x3::commit();
     }
+
+    float dot[4];
+    cosine_dots(dot, es, wcur, DP, xch);
+    a_tile<true>(dot, odd ? rinv1 : rinv0, rd, C, t * TC, mg, at_big, at_small);
+    // tile t + 1 lands while the second product runs; its norms are taken
+    // now, into the other buffer, so that the cosine never waits on them
+    tf32x3::wait_pending<0>();
+    __syncthreads();
+    if (t + 1 < tile_hi) tile_rnorms(odd ? ws0 : ws1, DP, odd ? rinv0 : rinv1);
+    if (has_cols)
+      tf32x3::warp_mma_k32<MK_ROWS>(acc, at_big, at_small, wcur, DP, 32 * warp);
   }
 
+  if (!has_cols) return;
   float* out = part + (size_t)split * B * D;
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int r = row0 + rg * RPT + k;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = dg + 16 * j;
-      if (r < B && d < D) out[(size_t)r * D + d] = acc[k][j];
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 16 * i + (lane >> 2) + 8 * h;
+      if (r >= B) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int d = 32 * warp + 8 * j + 2 * (lane & 3) + q;
+          if (d < D) out[(size_t)r * D + d] = acc[i][j][2 * h + q];
+        }
     }
+}
+
+// Both passes in one launch: blocks [0, n_dw) run the dW pass on class tile
+// blockIdx.x, the rest the de pass on (batch tile, split), batch tile
+// fastest.  The passes share no data, so the de blocks take the SMs that
+// the dW pass leaves free.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+bwd_tiles_kernel(const float* __restrict__ e, const float* __restrict__ w,
+                 const int* __restrict__ labels, const float* __restrict__ lse,
+                 const float* __restrict__ g, int B, int C, int D, int DP,
+                 int tiles_per_split, Margin mg, float* __restrict__ part,
+                 float* __restrict__ dw) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_dw = (C + TC - 1) / TC;
+  if ((int)blockIdx.x < n_dw) {
+    dw_block<VEC>(smem, blockIdx.x, e, w, labels, lse, g, B, C, D, DP, mg, dw);
+  } else {
+    const int i = blockIdx.x - n_dw;
+    const int n_rt = (B + TB - 1) / TB;
+    de_block<VEC>(smem, i % n_rt, i / n_rt, e, w, labels, lse, g, B, C, D, DP,
+                  tiles_per_split, mg, part);
   }
 }
 
@@ -253,48 +435,69 @@ __global__ void bwd_de_sum_kernel(const float* __restrict__ part, int n_splits,
   de[i] = sum;
 }
 
+template <int VEC>
+cudaError_t launch(const float* e, const float* w, const int* labels, const float* lse,
+                   const float* g, int B, int C, int D, int tiles_per_split, int n_splits,
+                   const Margin& mg, float* part, float* de, float* dw, cudaStream_t st) {
+  int DP = 32;  // a power of two: stage_rows needs DP / VEC to divide THREADS
+  while (DP < D) DP *= 2;
+  // the dW pass's layout (the de pass's is smaller: no projection scratch)
+  const size_t smem =
+      sizeof(float) * (3 * TB * DP + 2 * TB * TC + TC + WARPS * TC + WARPS * 128);
+  static_assert(TB == TC, "both passes stage three 32-row tiles");
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_tiles_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (C + TC - 1) / TC + (B + TB - 1) / TB * n_splits;
+  bwd_tiles_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D, DP,
+                                                        tiles_per_split, mg, part, dw);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = B * D;
+  bwd_de_sum_kernel<<<(n + 255) / 256, 256, 0, st>>>(part, n_splits, n, de);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int flash_aam_bwd_block_rows() { return BM; }
-int flash_aam_bwd_block_classes() { return BN; }
+int flash_aam_bwd_block_rows() { return TB; }
+int flash_aam_bwd_block_classes() { return TC; }
 int flash_aam_bwd_max_dim() { return DMAX; }
 
 // e (B, D) f32, w (C, D) f32, labels (B,) i32, lse (B,) f32, g (B,) f32, all
 // contiguous on the card; part is scratch of n_splits * B * D floats with
-// n_splits = ceil(ceil(C / BN) / tiles_per_split); de (B, D) and dw (C, D)
+// n_splits = ceil(ceil(C / TC) / tiles_per_split); de (B, D) and dw (C, D)
 // f32 outputs.  Launches on `stream` and returns the cudaError_t of the
 // launches (0 on success).
 int flash_aam_bwd(const void* e, const void* w, const void* labels, const void* lse,
                   const void* g, int B, int C, int D, int tiles_per_split,
                   int n_splits, float s, float cos_m, float sin_m, float th, float mm,
                   void* part, void* de, void* dw, void* stream) {
-  const int n_tiles = (C + BN - 1) / BN;
+  const int n_tiles = (C + TC - 1) / TC;
   if (B <= 0 || C <= 0 || D <= 0 || D > DMAX || tiles_per_split <= 0 ||
       n_splits != (n_tiles + tiles_per_split - 1) / tiles_per_split)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Margin mg{s, cos_m, sin_m, th, mm};
   const float* ef = static_cast<const float*>(e);
   const float* wf = static_cast<const float*>(w);
   const int* lab = static_cast<const int*>(labels);
   const float* lf = static_cast<const float*>(lse);
   const float* gf = static_cast<const float*>(g);
-  bwd_dw_kernel<<<n_tiles, NTHREADS, 0, st>>>(ef, wf, lab, lf, gf, B, C, D, mg,
-                                              static_cast<float*>(dw));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + BM - 1) / BM, n_splits);
-  bwd_de_partial_kernel<<<grid, NTHREADS, 0, st>>>(ef, wf, lab, lf, gf, B, C, D,
-                                                   tiles_per_split, mg,
-                                                   static_cast<float*>(part));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n = B * D;
-  bwd_de_sum_kernel<<<(n + 255) / 256, 256, 0, st>>>(static_cast<const float*>(part),
-                                                     n_splits, n, static_cast<float*>(de));
-  return (int)cudaGetLastError();
+  float* pf = static_cast<float*>(part);
+  float* def = static_cast<float*>(de);
+  float* dwf = static_cast<float*>(dw);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 16-byte copies need every row to start on a 16-byte boundary
+  const bool aligned = D % 4 == 0 && reinterpret_cast<uintptr_t>(e) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const cudaError_t err =
+      aligned ? launch<4>(ef, wf, lab, lf, gf, B, C, D, tiles_per_split, n_splits, mg, pf,
+                          def, dwf, st)
+              : launch<1>(ef, wf, lab, lf, gf, B, C, D, tiles_per_split, n_splits, mg, pf,
+                          def, dwf, st);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
-// Shared by the forward and backward flash AAM kernels (sm_90a): the tile
-// geometry, the ArcFace margin, and the 64x64 tile of e . w^T with the norms
-// of its 64 W rows.  Both kernels compute every cosine through dot_tile and
-// cosine(), so the backward recomputes bit for bit the logits whose
-// log-sum-exp the forward returned.
+// Shared by the forward and backward flash AAM kernels (sm_90a): the ArcFace
+// margin (both), and the forward's tile geometry and 64x64 tile of e . w^T on
+// f32 FMAs with the norms of its 64 W rows.  The backward computes its
+// cosines on the tensor cores (mma_tf32x3.cuh), so they differ from the
+// forward's by about an ulp.
 #pragma once
 
 #include <cuda_runtime.h>

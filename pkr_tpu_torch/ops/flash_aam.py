@@ -42,8 +42,8 @@ DEFAULT_TILE = 2048
 _NEG_INF = -1e30
 _KERNEL = "flash_aam_fwd"
 _BWD_KERNEL = "flash_aam_bwd"
-# CUDA blocks to aim for when the class axis is split: a few per SM (the
-# backward's blocks hold twice the registers, so it aims for fewer)
+# CUDA blocks to aim for when the class axis is split: a few per SM (two
+# of the backward's blocks fill an SM's shared memory)
 _BLOCKS_PER_SM = 4
 _BWD_BLOCKS_PER_SM = 2
 
@@ -97,27 +97,33 @@ def flash_aam_fwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
     return run_m + torch.log(run_s), zy, run_m, cnt
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b without TF32: each product of the plain backward."""
+    with full_f32():
+        return torch.matmul(a, b)
+
+
 def flash_aam_bwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
                         labels: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
                         m: float = 0.2, s: float = 30.0, tile: int = DEFAULT_TILE):
     """The plain PyTorch version of the backward kernel, class tile by class
     tile as ``_bwd_kernel`` goes: recompute cos and p = exp(z − lse), form
     a = (p − onehot)·dz/dcos·g, accumulate dê += a·ŵ and write each tile's
-    dW = (aᵀe − proj·ŵ)/‖w‖.  Returns (dê (B, D), dW (C, D)), f32."""
+    dW = (aᵀe − proj·ŵ)/‖w‖.  Returns (dê (B, D), dW (C, D)) in e_hat's
+    type: f32, or f64 for a reference free of f32 rounding."""
     B, D = e_hat.shape
     C = weight.shape[0]
-    dev = e_hat.device
+    dev, dt = e_hat.device, e_hat.dtype
     cos_m, sin_m, th, mm = _margin_consts(m)
-    de = torch.zeros((B, D), dtype=torch.float32, device=dev)
-    dw = torch.empty((C, D), dtype=torch.float32, device=dev)
+    de = torch.zeros((B, D), dtype=dt, device=dev)
+    dw = torch.empty((C, D), dtype=dt, device=dev)
     lab = labels.to(device=dev, dtype=torch.int64)[:, None]
     lse2, g2 = lse[:, None], g[:, None]
     for c0 in range(0, C, tile):
-        w = weight[c0:c0 + tile].to(torch.float32)
+        w = weight[c0:c0 + tile].to(dt)
         wnorm = torch.sqrt(torch.clamp(torch.sum(w * w, dim=1, keepdim=True), min=1e-24))
         w_hat = w / wnorm
-        with full_f32():
-            cos = torch.matmul(e_hat, w_hat.T)  # (B, tile)
+        cos = _mm(e_hat, w_hat.T)  # (B, tile)
         sin2 = 1.0 - cos * cos
         sin = torch.sqrt(torch.clamp(sin2, 1e-12, 1.0))
         in_phi = cos - th > 0
@@ -129,10 +135,9 @@ def flash_aam_bwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
         dsin = torch.where(sin2 >= 1e-12, -cos / sin, 0.0)
         dphi = torch.where(in_phi, cos_m - sin_m * dsin, 1.0)
         dz = torch.where(is_tgt, s * dphi, s)
-        a = (p - is_tgt.to(torch.float32)) * dz * g2
-        with full_f32():
-            de += torch.matmul(a, w_hat)
-            dw_hat = torch.matmul(a.T, e_hat)  # (tile, D)
+        a = (p - is_tgt.to(dt)) * dz * g2
+        de += _mm(a, w_hat)
+        dw_hat = _mm(a.T, e_hat)  # (tile, D)
         proj = torch.sum(dw_hat * w_hat, dim=1, keepdim=True)
         dw[c0:c0 + tile] = (dw_hat - proj * w_hat) / wnorm
     return de, dw

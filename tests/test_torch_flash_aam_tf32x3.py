@@ -1,0 +1,195 @@
+"""The 3×TF32 arithmetic of the flash backward kernel, emulated on the CPU.
+
+``pkr_tpu_torch/csrc/flash_aam_bwd.cu`` runs its three products (the cosine
+tile ê·Wᵀ, aᵀ·ê and a·ŵ) on the tensor cores in 3×TF32: each f32 operand x
+splits into big = rna_tf32(x) and small = rna_tf32(x − big), and a product
+sums a_small·b_big + a_big·b_small + a_big·b_big in f32.  No card runs here,
+so this file emulates that arithmetic with int32 bit operations (rna_tf32 is
+``cvt.rna.tf32.f32``: keep 10 mantissa bits, round to nearest, ties away
+from zero), puts it in place of each product of the port's plain backward
+(``flash_aam._mm``), and holds the result against pkr_tpu's Pallas backward
+kernel in interpret mode, at the cases of tests/test_torch_flash_aam.py:
+every row of dê and dW within 1e-3 of its own norm, but the rows of
+examples whose target cosine sits at the sin clip (see _off_the_clip); the
+saturated case's cosine is exactly 1.0.  It also shows that the split's
+error is at least 10× below that of one TF32 product (big parts only), so
+the checks can tell the two apart.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pkr_tpu.ops import flash_aam as jax_flash
+from pkr_tpu_torch.ops import flash_aam as port_flash
+from test_torch_flash_aam import CASES, make
+
+ROW_TOL = 1e-3
+
+
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 of finite f32 values: add half of the 13 dropped
+    bits' range to the magnitude (the int32 view is sign and magnitude, so
+    adding to it moves away from zero), then clear them."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    big = rna_tf32(x)
+    return big, rna_tf32(x - big)
+
+
+def mm_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernel forms it: three products of TF32 parts (exact in
+    f32), small terms first, summed in f32."""
+    a_big, a_small = split(a)
+    b_big, b_small = split(b)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in one TF32 product (the big parts only)."""
+    return rna_tf32(a) @ rna_tf32(b)
+
+
+def test_rna_tf32_known_values():
+    ulp = 2.0 ** -10  # a TF32 mantissa step at 1.0
+    cases = {
+        1.0: 1.0,
+        1.0 + ulp / 2: 1.0 + ulp,              # halfway: away from zero (not to even)
+        -(1.0 + ulp / 2): -(1.0 + ulp),
+        1.0 + 3 * ulp / 2: 1.0 + 2 * ulp,      # halfway above an odd step
+        1.0 + ulp / 2 - 2.0 ** -23: 1.0,       # just below halfway
+        1.0 + ulp / 2 + 2.0 ** -23: 1.0 + ulp,
+        2.0 - 2.0 ** -23: 2.0,                 # rounds up into the next binade
+        0.0: 0.0,
+        3.0 + 2.0 ** -10: 3.0 + 2.0 ** -9,     # halfway in [2, 4), where a step is 2^-9
+    }
+    x = torch.tensor(list(cases), dtype=torch.float32)
+    want = torch.tensor(list(cases.values()), dtype=torch.float32)
+    got = rna_tf32(x)
+    assert torch.equal(got, want), (got.tolist(), want.tolist())
+    assert torch.all(got.view(torch.int32) & 0x1FFF == 0)
+
+
+def test_split_is_exact_for_short_mantissas():
+    """1.0, 2.0 and other values with at most 11 significant bits split with
+    no remainder, so the saturated cosine (a one-hot row against a row
+    2·e_k) is exact; a general value is big + small to within 2^-22."""
+    short = torch.tensor([1.0, 2.0, 0.5, 3.0, -1.5, 1.0 + 2.0 ** -10])
+    big, small = split(short)
+    assert torch.equal(big, short) and torch.all(small == 0)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
+    big, small = split(x)
+    assert torch.all((big + small - x).abs() <= 2.0 ** -22 * x.abs())
+    assert torch.all(small.abs() <= 2.0 ** -11 * x.abs())
+
+
+def test_split_error_is_far_below_one_tf32_product():
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((256, 300)).astype(np.float32))
+    exact = a.double() @ b.double()
+    err3 = float((mm_tf32x3(a, b).double() - exact).abs().max())
+    err1 = float((mm_tf32(a, b).double() - exact).abs().max())
+    err32 = float(((a @ b).double() - exact).abs().max())
+    assert err3 * 10 <= err1, (err3, err1)
+    assert err3 <= 4 * err32 + 1e-6, (err3, err32)  # f32 accuracy
+
+
+def _row_ok(got: np.ndarray, ref: np.ndarray, tol: float = ROW_TOL) -> float:
+    """max over rows of ‖got_r − ref_r‖ / ‖ref_r‖ (a zero row must be zero);
+    asserts it is within tol and returns it."""
+    num = np.linalg.norm(got.astype(np.float64) - ref.astype(np.float64), axis=1)
+    den = np.linalg.norm(ref.astype(np.float64), axis=1)
+    assert np.all(num[den == 0] == 0)
+    rel = float(np.max(num[den > 0] / den[den > 0], initial=0.0))
+    assert rel <= tol, rel
+    return rel
+
+
+def _port_bwd(emb, w, labels, lse, g, tile, mm, monkeypatch):
+    monkeypatch.setattr(port_flash, "_mm", mm)
+    e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+    de, dw = port_flash.flash_aam_bwd(e_hat, torch.from_numpy(w), torch.from_numpy(labels),
+                                      torch.tensor(np.asarray(lse)), torch.from_numpy(g),
+                                      0.2, 30.0, tile)
+    return de.numpy(), dw.numpy()
+
+
+def _pallas(emb, w, labels, tile):
+    e_hat, _ = jax_flash._normalize(jnp.asarray(emb))
+    lse = jax_flash._fwd_pallas(e_hat, jnp.asarray(w), jnp.asarray(labels), 0.2, 30.0,
+                                tile, True)[0]
+    g = np.linspace(0.5, 1.5, len(labels)).astype(np.float32)
+    ref = jax_flash._bwd_pallas(e_hat, jnp.asarray(w), jnp.asarray(labels), lse,
+                                jnp.asarray(g), 0.2, 30.0, tile, True)
+    return lse, g, [np.asarray(r) for r in ref]
+
+
+def _off_the_clip(emb, w, labels):
+    """(examples, classes) whose rows the row check holds: all but the
+    examples whose target cosine has 1 − cos² < 1e-4, and the classes they
+    are labelled with.  Such an example's row is decided by the last bits of
+    its cosine, in any f32 arithmetic: at the sin clip the margin's slope
+    sin_m·cos/sin jumps between 1 and ~600 on one bit, p = exp(z − lse)
+    then moves by ~1e-3 while a = p − 1 is ~0, and the row projection of dW
+    cancels an (anti-)aligned example's whole term.  The port's f32 plain
+    version misses these rows of the Pallas kernel's by up to 1.45 of their
+    norm too."""
+    e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+    w_t = torch.from_numpy(w)[torch.from_numpy(labels)]
+    cos = torch.sum(e_hat * w_t / w_t.norm(dim=1, keepdim=True), dim=1)
+    rows = (1 - cos.double() ** 2 >= 1e-4).numpy()
+    classes = np.ones(len(w), bool)
+    classes[labels[~rows]] = False
+    return rows, classes
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_tf32x3_bwd_matches_pallas_bwd(name, monkeypatch):
+    """(dê, dW) of the plain backward with its three products in emulated
+    3×TF32 against the Pallas backward kernel (interpret mode), every row
+    within 1e-3 of its own norm but those of examples at the sin clip
+    (_off_the_clip), which only the margin and saturated cases have."""
+    (emb, w, labels), tile = CASES[name]
+    lse, g, ref = _pallas(emb, w, labels, tile)
+    got = _port_bwd(emb, w, labels, lse, g, tile, mm_tf32x3, monkeypatch)
+    rows, classes = _off_the_clip(emb, w, labels)
+    assert rows.all() == (name not in ("margin_branches", "saturated"))
+    for gt, r, keep in zip(got, ref, (rows, classes)):
+        assert np.isfinite(gt).all() and gt.shape == r.shape
+        _row_ok(gt[keep], r[keep])
+
+
+def test_saturated_cosine_is_exact():
+    """A one-hot embedding against a class row 2·e_k: 3×TF32 gives the
+    cosine exactly 1.0, so the sin clip (no gradient through sin) holds as
+    in the Pallas kernel."""
+    (emb, w, labels), _ = CASES["saturated"]
+    e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+    w_t = torch.from_numpy(w)
+    cos = mm_tf32x3(e_hat, (w_t / w_t.norm(dim=1, keepdim=True)).T)
+    assert torch.equal(cos[:2, 5], torch.ones(2))
+
+
+def test_row_check_tells_tf32x3_from_one_tf32_product(monkeypatch):
+    """Against the plain backward in f64, one TF32 product per f32 product
+    misses the 1e-3 row bar that 3×TF32 meets with room to spare."""
+    emb, w, labels = make(B=32, D=64, C=300, seed=7)
+    lse, g, _ = _pallas(emb, w, labels, 128)
+    e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+    ref = port_flash.flash_aam_bwd_plain(e_hat.double(), torch.from_numpy(w).double(),
+                                         torch.from_numpy(labels),
+                                         torch.tensor(np.asarray(lse)).double(),
+                                         torch.from_numpy(g).double(), 0.2, 30.0, 128)
+    ref = [r.numpy() for r in ref]
+    three = _port_bwd(emb, w, labels, lse, g, 128, mm_tf32x3, monkeypatch)
+    one = _port_bwd(emb, w, labels, lse, g, 128, mm_tf32, monkeypatch)
+    for t3, t1, r in zip(three, one, ref):
+        rel3 = _row_ok(t3, r)
+        rel1 = _row_ok(t1, r, tol=np.inf)
+        assert rel3 * 10 <= rel1 and rel1 > ROW_TOL, (rel3, rel1)
