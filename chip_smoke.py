@@ -9,7 +9,8 @@ Phases, one JSON line each:
   env     the card's name, count and power limit (nvidia-smi);
   build   nvcc builds every kernel of the paths from csrc/, one nvcc per
           source, all at once (seconds, ptxas registers and shared memory,
-          and the tensor-core HMMA instructions cuobjdump finds in each);
+          and the tensor-core HMMA instructions cuobjdump finds in each:
+          both kernels run on the tensor cores, so neither may have none);
   kernel  each kernel against its plain PyTorch version on the card, at the
           shapes of the paths and beyond (a gradient row by row, each row
           within 1e-3 of its own norm, with planted faults the check must
@@ -17,6 +18,9 @@ Phases, one JSON line each:
           plain version in f64, at D = 37, and twice for the same bits), with
           its time, the plain version's time, a dense library yardstick's
           time and two roofline bounds (f32 CUDA cores; 3×TF32 tensor cores);
+          then the two kernels against each other: with one class the
+          backward's gradients are exactly 0 iff both formed the same cosine
+          bits (check_consistency);
   slice   the serving path at full width — 128 six-second utterances through
           wav_to_train_feats → ResNet-34 SpeakerModel (7325-speaker AAM head,
           seeded random weights) → extract_embeddings → the flash eval step →
@@ -212,8 +216,7 @@ def phase_build():
         hmma = hmma_count(info["path"])
         emit({"phase": "build", "kernel": name, "seconds": info["seconds"],
               "wall_seconds_all": wall, "ptxas": info["ptxas"], "hmma_instructions": hmma})
-        if name == "flash_aam_bwd":  # the 3×TF32 backward runs on the tensor cores
-            check(hmma > 0, "the backward library has no HMMA instruction")
+        check(hmma > 0, f"the {name} library has no HMMA instruction")
 
 
 CONFIDENT_COS = 0.68  # target cosine of the confident case: target p ≈ 0.993
@@ -261,6 +264,9 @@ def _rank_gaps(torch, emb, w, labels, rows, k):
     return (tgt - kth).abs()
 
 
+FWD_KERNELS = ("fwd_tiles_kernel", "merge_kernel")
+
+
 def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
     from pkr_tpu_torch.ops import flash_aam as fa
 
@@ -300,13 +306,15 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
 
         iters = max(3, min(50, int(2e11 / (B * C * D))))
         timed_fns = (("kernel", lambda: fa.flash_aam_fwd(e_hat, w, labels, zt),
-                      ("fwd_partial_kernel", "merge_kernel")),
+                      FWD_KERNELS),
                      ("plain", lambda: fa.flash_aam_fwd_plain(e_hat, w, labels, zt), None),
                      ("library", dense, None))
         for tag, fn, only in timed_fns:
-            row[f"{tag}_ms"], row[f"{tag}_device_kernels_per_call"], _ = device_ms(
+            row[f"{tag}_ms"], row[f"{tag}_device_kernels_per_call"], top = device_ms(
                 torch, fn, iters, only)
             row[f"{tag}_call_ms"] = call_ms(torch, fn, iters)
+            if tag == "kernel":  # the tile kernel and the merge, ms each per call
+                row["kernel_ms_by_launch"] = top
         check(row["kernel_ms"] is not None, f"{name}: the trace shows no kernel time")
         row["bound_ms"], row["bound_by"], row["bound_tc_ms"] = flash_bound(B, C, D)
     emit(row)
@@ -438,6 +446,81 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
     return row
 
 
+def consistency_inputs(torch, B, D, seed, exact):
+    """One class row w (C = 1) and B unit embeddings, every label 0.
+
+    `exact`: w has entries ±1 and ±2 (random signs) with Σw² a power of 4,
+    so 1/‖w‖ is a power of two and every product and sum is exact: row 0 is
+    w/‖w‖ (cosine exactly 1.0), rows j = 1..4 the same with one entry lowered
+    so that the cosine is exactly 1 − j·2⁻²⁴ (j ulps below 1.0, the sin
+    clip); the rest lie at cosines spread over (−1, 1).  Otherwise w is
+    Gaussian (the norm and the dot round at every step) and 33 rows, w/‖w‖
+    scaled by 1 + j·2⁻²⁴ (j = −16..16), sweep the floats around 1.0."""
+    rng = np.random.default_rng(seed)
+    if exact:
+        n_two, rem = divmod(4 ** int(np.ceil(np.log(D) / np.log(4))) - D, 3)
+        check(rem == 0, f"the exact construction needs D ≡ 1 (mod 3), not {D}")
+        w = np.where(np.arange(D) < n_two, 2.0, 1.0) * rng.choice([-1.0, 1.0], D)
+        rinv = 1.0 / np.sqrt(np.sum(w * w))
+        w_hat = w * rinv
+        near = np.repeat(w_hat[None, :], 5, axis=0)
+        near[:, -1] -= np.sign(w[-1]) * np.arange(5) * 2.0 ** -24 / rinv
+    else:
+        w = rng.standard_normal(D)
+        w_hat = w / np.linalg.norm(w)
+        near = w_hat[None, :] * (1.0 + np.arange(-16, 17)[:, None] * 2.0 ** -24)
+    cos = np.linspace(-1.0, 1.0, B - len(near) + 2)[1:-1]
+    u = rng.standard_normal((len(cos), D))
+    u -= (u @ w_hat)[:, None] * w_hat[None, :]
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    far = cos[:, None] * w_hat[None, :] + np.sqrt(1.0 - cos ** 2)[:, None] * u
+    emb = np.concatenate([near, far]).astype(np.float32)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(emb).to(dev), torch.from_numpy(w[None, :].astype(np.float32)).to(dev),
+            torch.zeros(B, dtype=torch.int64, device=dev))
+
+
+def check_consistency(torch, B, D, seed, exact):
+    """The forward and the backward kernel form the same cosine bits.  With
+    one class (C = 1) and every label 0, the forward's lse is its zy (one
+    logit), so where the backward's cosine has the forward's bits its
+    p = exp(z − lse) is exactly 1, a = (p − 1)·… exactly 0, and dê and dW
+    exactly 0.  A cosine one ulp off moves z by s·phi'·ulp (s·phi' ≈ 29 at
+    cos = 0, larger toward 1), so p ≠ 1 almost everywhere: a forward that
+    sums e·w on f32 FMAs in depth order, as this repository's first forward
+    kernel did, fails the check.  The
+    `exact` case also puts rows at cosine 1.0 and 1–4 ulps below it (read
+    back from zy through the margin: each of those cosines has its own
+    margined logit)."""
+    from pkr_tpu_torch.ops import flash_aam as fa
+
+    emb, w, labels = consistency_inputs(torch, B, D, seed, exact)
+    zt = fa._margined_target_z(emb, w, labels, 0.2, 30.0)
+    lse, zy, mx, cnt = fa.flash_aam_fwd(emb, w, labels, zt)
+    de, dw = fa.flash_aam_bwd(emb, w, labels, lse, torch.full((B,), 1.0 / B, device=emb.device))
+    torch.cuda.synchronize()
+    # the margined target logit at cos = 1 − k·2⁻²⁴, formed on the CPU with
+    # the kernels' roundings
+    z_near = (fa._phi(torch.tensor([1.0 - k * 2.0 ** -24 for k in range(5)]), 0.2)
+              * 30.0).tolist()
+    zy_cpu = zy.cpu()
+    row = {"phase": "kernel", "kernel": "consistency", "case": "exact" if exact else "gaussian",
+           "B": B, "C": 1, "D": D, "lse_equals_zy": bool(torch.equal(lse, zy)),
+           "max_abs_de": float(de.abs().max()), "max_abs_dw": float(dw.abs().max()),
+           "rows_at_cos_1_minus_k_ulp": [int((zy_cpu == z).sum()) for z in z_near],
+           "tol": "exactly 0"}
+    emit(row)
+    check(row["lse_equals_zy"] and torch.equal(zy, mx) and not bool(cnt.any()),
+          f"C = 1: the forward's lse is not its zy ({B} x {D})")
+    check(row["max_abs_de"] == 0.0 and row["max_abs_dw"] == 0.0,
+          f"C = 1 ({B} x {D}): the backward's cosines differ from the forward's "
+          f"(max |dê| {row['max_abs_de']}, max |dW| {row['max_abs_dw']})")
+    if exact:
+        check(zy_cpu[:5].tolist() == z_near, f"C = 1 ({B} x {D}): the rows meant for "
+                                             f"cos = 1 − k ulps are elsewhere")
+    return row
+
+
 def phase_kernel(torch):
     D = 256
     cases = [("slice_eval", BATCH, SPK, True), ("path_b256", 256, SPK, True),
@@ -458,6 +541,9 @@ def phase_kernel(torch):
                                          timed=False, confident=True))
     bwd_rows.append(check_flash_bwd_case(torch, "ragged_depth", 100, 7001, 37, seed=31,
                                          timed=False))
+    for i, (B, D) in enumerate(((256, 256), (100, 37))):
+        for exact in (True, False):
+            check_consistency(torch, B, D, seed=40 + i, exact=exact)
     return rows, bwd_rows
 
 
@@ -720,7 +806,7 @@ def phase_train(torch, smi_line):
         dev_ms, n_act, top = device_ms(torch, lambda: step(st, x, y, lr), 2)
         wall = call_ms(torch, lambda: step(st, x, y, lr), 3, warmup=1)
         head = device_ms(torch, lambda: step(st, x, y, lr), 2,
-                         only=BWD_KERNELS + ("fwd_partial_kernel", "merge_kernel"))[0]
+                         only=BWD_KERNELS + FWD_KERNELS)[0]
         stages[tag] = {"device_ms": dev_ms, "wall_ms": wall, "activities": n_act,
                        "busy": None if dev_ms is None else dev_ms / wall,
                        "flash_kernels_ms": head, "top": top}

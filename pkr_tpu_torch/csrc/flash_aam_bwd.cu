@@ -52,46 +52,33 @@
 // product.  The de pass takes the norms of the next W tile while the second
 // product runs, so no block-wide barrier sits inside the cosine.
 // 1/||w|| is computed once per W row of a staged tile (the sum of squares
-// in f32 on the CUDA cores, ||w|| = sqrt(max(sum w^2, 1e-24)) as the
-// forward, its reciprocal rounded once); the cosine is
-// (e . w) * (1/||w||), de folds 1/||w|| into a (a * (1/||w||)) instead of
-// scaling every staged W element, and the a tile is split into its TF32
-// parts once, where it is formed, not by every warp that reads it.
+// in f32 on the CUDA cores, ||w|| = sqrt(max(sum w^2, 1e-24)), its
+// reciprocal rounded once); the cosine is (e . w) * (1/||w||), de folds
+// 1/||w|| into a (a * (1/||w||)) instead of scaling every staged W element,
+// and the a tile is split into its TF32 parts once, where it is formed, not
+// by every warp that reads it.
 //
-// Numerics against the forward.  The forward sums e . w on f32 FMAs in depth
-// order; this kernel sums 3xTF32 products in another order, so a cosine
-// differs by about 1e-7 and p = exp(z - lse) by about s * 1e-7 = 3e-6 of
-// itself: the size of the gap the plain version (cuBLAS) already has.  A
-// saturated cosine stays exact: 1.0 and 2.0 split into TF32 with no
-// remainder, and 1/||w|| = 0.5.  Near the sin clip (1 - cos^2 -> 1e-12)
-// phi' grows as sin_m * cos / sin, so there a one-ulp difference between
-// this cosine and the forward's moves p by up to ~1e-3; computing the
-// forward on the same engine makes the two agree again.
+// Numerics against the forward.  The cosine tile (tile_rnorms, cosine_dots)
+// is flash_aam_cosine.cuh's, which the forward kernel calls on the same
+// tiles, so every cosine here has the forward's bits and p = exp(z - lse)
+// is the softmax of the very logits whose log-sum-exp the forward returned.
+// That matters at the sin clip (cos -> 1), where phi' grows as
+// sin_m * cos / sin and one ulp of cosine would move p by up to ~1e-3.  A
+// saturated cosine is exact: 1.0 and 2.0 split into TF32 with no
+// remainder, and 1/||w|| = 0.5.
 //
-// D is at most 256, padded to a power of two (at least 32) in shared memory
-// with zeros.
+// D is at most 256, padded to padded_depth(D) in shared memory with zeros.
 // Rows of e and W whose length is a multiple of 4 are staged with 16-byte
 // cp.async copies; other D take 4-byte copies (VEC = 1).
 
-#include "flash_aam_common.cuh"
-#include "mma_tf32x3.cuh"
+#include "flash_aam_cosine.cuh"
 
 namespace {
 
-using flash_aam::FULL;
-using flash_aam::Margin;
-using flash_aam::margined;
+using namespace flash_aam;
 using tf32x3::K_ROWS;
 using tf32x3::MK_ROWS;
 using tf32x3::at;
-
-constexpr int TB = 32;          // batch rows per tile
-constexpr int TC = 32;          // classes per tile
-constexpr int DMAX = 256;       // largest depth
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-
-static_assert(TB == 32 && TC == 32 && WARPS == 8, "warp tiling below");
 
 // dL/dcos times g for one logit: (p - onehot) * dz/dcos * g.
 __device__ __forceinline__ float dlogit(float cos, bool is_tgt, float lse, float g,
@@ -109,67 +96,6 @@ __device__ __forceinline__ float dlogit(float cos, bool is_tgt, float lse, float
     dz = __fmul_rn(mg.s, dphi);
   }
   return __fmul_rn(__fmul_rn(__fsub_rn(p, is_tgt ? 1.0f : 0.0f), dz), g);
-}
-
-// rinv[c] = 1 / ||W row c|| of a staged TC-row tile, ||w|| =
-// sqrt(max(sum w^2, 1e-24)) as the forward's row_norm: 8 threads a row sum
-// every 8th square in f32, a fixed butterfly adds them, and the reciprocal
-// square root is rounded once (__frsqrt_rn).  Other threads see it after
-// the next __syncthreads.
-__device__ __forceinline__ void tile_rnorms(const float* ws, int ld, float* rinv) {
-  const int r = threadIdx.x >> 3;
-  const int part = threadIdx.x & 7;
-  float sq = 0.0f;
-  for (int c = part; c < ld; c += 8) {
-    const float v = ws[at(r, c, ld)];
-    sq = fmaf(v, v, sq);
-  }
-  sq += __shfl_xor_sync(FULL, sq, 4);
-  sq += __shfl_xor_sync(FULL, sq, 2);
-  sq += __shfl_xor_sync(FULL, sq, 1);
-  if (part == 0) rinv[r] = __frsqrt_rn(fmaxf(sq, 1e-24f));
-}
-
-// The 16x8 tile of the 32x32 tile e . w^T that this warp finishes: rows
-// 16 * (w % 4 / 2).., classes 8 * cosine_ntile(w)...  Warp w computes the
-// 16x16 quadrant w % 4 over half the depth (w / 4), keeps the 16x8 half that
-// cosine_ntile names and hands the other to the warp w ^ 4 of the same
-// quadrant, through xch (8 x 4 x 32 floats).  Each 16-deep chunk's MMAs
-// start from zero and their sum is added to the running f32 sum with a
-// rounded add: the tensor cores never add a small term to a large sum, and
-// the cosine's error is that of rounded f32 sums of DP / 32 chunk sums.
-// The two warps of a quadrant meet at named barrier 1 + quadrant; nothing
-// else waits, so the caller publishes other shared data with __syncthreads.
-__device__ __forceinline__ int cosine_ntile(int warp) { return 2 * (warp & 1) + (warp >> 2); }
-
-__device__ __forceinline__ void cosine_dots(float (&dot)[4], const float* es, const float* ws,
-                                            int DP, float* xch) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int quad = warp & 3;
-  const int kh = warp >> 2;
-  const int k0 = kh * (DP / 2);
-  float sum[1][2][4] = {};
-#pragma unroll 2
-  for (int kc = 0; kc < DP / 2; kc += 16) {
-    float chunk[1][2][4] = {};
-    tf32x3::warp_mma_k16<1, 2>(chunk, es, DP, 16 * (quad >> 1), ws, DP, 16 * (quad & 1),
-                               k0 + kc);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sum[0][j][q] = __fadd_rn(sum[0][j][q], chunk[0][j][q]);
-  }
-  // keep n-tile kh of the quadrant, hand n-tile 1 - kh to the other half
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    dot[q] = kh ? sum[0][1][q] : sum[0][0][q];
-    xch[(warp * 4 + q) * 32 + lane] = kh ? sum[0][0][q] : sum[0][1][q];
-  }
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + quad) : "memory");
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    dot[q] = __fadd_rn(dot[q], xch[((warp ^ 4) * 4 + q) * 32 + lane]);
 }
 
 // Label, lse and g of the two batch rows whose logits this thread forms
@@ -439,8 +365,7 @@ template <int VEC>
 cudaError_t launch(const float* e, const float* w, const int* labels, const float* lse,
                    const float* g, int B, int C, int D, int tiles_per_split, int n_splits,
                    const Margin& mg, float* part, float* de, float* dw, cudaStream_t st) {
-  int DP = 32;  // a power of two: stage_rows needs DP / VEC to divide THREADS
-  while (DP < D) DP *= 2;
+  const int DP = padded_depth(D);
   // the dW pass's layout (the de pass's is smaller: no projection scratch)
   const size_t smem =
       sizeof(float) * (3 * TB * DP + 2 * TB * TC + TC + WARPS * TC + WARPS * 128);

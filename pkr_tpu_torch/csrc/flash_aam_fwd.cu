@@ -8,185 +8,279 @@
 //   zy  = z_y                           (the very float that entered the max)
 //   mx  = max_c z_c                     (top-1: zy >= mx)
 //   cnt = #{c != y : z_c > zt}          (top-5: cnt < 5)
-// with cos_c = e . w_c / sqrt(max(|w_c|^2, 1e-24)) and phi the ArcFace margin
-// with the hard-margin guard.
+// with cos_c = (e . w_c) * (1 / sqrt(max(|w_c|^2, 1e-24))) and phi the
+// ArcFace margin with the hard-margin guard.
 //
 // What bounds it: 2*B*C*D f32 operations against B*D + C*D f32 inputs.  At
 // B=256, C=7325, D=256 that is 0.96 GFLOP (14 us at the H100's 67 TFLOP/s
-// f32 CUDA-core peak) against 7.8 MB (2.3 us at 3.35 TB/s): compute-bound in
-// f32.  The product must stay at f32 accuracy (cosines near +-1 feed the
-// margin), so it runs on f32 FMAs, not TF32 tensor cores.
+// f32 CUDA-core peak) against 7.8 MB (2.3 us at 3.35 TB/s): compute-bound.
+// The product must stay at f32 accuracy (cosines near +-1 feed the margin),
+// so it runs on the tensor cores in 3xTF32 (mma_tf32x3.cuh): 6*B*C*D TF32
+// operations, 5.8 us at 495 TFLOP/s.  As in the backward, the MMAs are not
+// what sets the pace: the kernel is bound by issuing instructions, and its
+// phases barely overlap.  About half the time is the cosine (splitting each
+// staged operand into its TF32 parts); staging the W tiles (W passes from
+// L2 once per batch tile), their norms and the epilogue take the rest, in
+// roughly equal parts (see PERF.md).
 //
 // Design.  The TPU kernel walks the class tiles in order on one core with the
 // whole batch resident in VMEM.  Here blocks run in parallel, so the grid is
-// (batch tiles of 64 rows) x (class splits).  A block loops over its split's
-// 64-class tiles: a 64x64 SGEMM tile (256 threads, 4x4 outputs each, 16-deep
-// chunks of e and W staged in shared memory), the row norms of W accumulated
-// from the same staged chunks, then the margin epilogue and an online
-// (max, sum-exp) update per thread.  Columns >= C are skipped, so W is never
-// padded.  At the end the 16 threads that share a row merge their states with
-// warp shuffles and the block writes one partial state per (split, row).  A
-// second small kernel merges the splits in a fixed order, without atomics, so
-// the result is deterministic.  The tile product and the margin live in
-// flash_aam_common.cuh, shared with the backward kernel.  Faster versions
-// (3xTF32 or wgmma, TMA) are later work.
+// (32-row batch tiles) x (class splits), two blocks resident per SM.  A
+// block keeps its e tile in shared memory and streams its split's 32-class
+// W tiles, double-buffered with cp.async: tile t + 1 is in flight while tile
+// t's cosines are formed.  The cosine tile is the backward's
+// (flash_aam_cosine.cuh: tile_rnorms, cosine_dots) on the same tiles, so
+// every cosine has the backward's bits and the lse handed to the backward is
+// the log-sum-exp of the logits it recomputes.  The next tile's norms are
+// taken after its copy lands, before the current tile's epilogue.  The
+// epilogue works on each thread's 2 rows x 2 classes of its warp's 16x8
+// cosine tile: the margin (flash_aam_common.cuh: margined) on the target,
+// classes >= C skipped (W is never padded), and per row an online
+// (max, sum-exp) that takes one expf per logit and rescales the sum only
+// when the max moves.  zy is the target's z itself, and the max is taken
+// over the same floats, so zy >= mx holds bit for bit when the target wins.
+// At the end the 16 threads that share a row (4 lanes x 4 warps) merge
+// their states in a fixed order, by shuffles and then through shared
+// memory, and the block writes one partial state per (split, row).
+// merge_kernel then merges the splits in a fixed order, without atomics, so
+// two calls give the same bits.
+//
+// D is at most 256 (the backward's limit), padded to padded_depth(D) in
+// shared memory with zeros.  Rows of e and W whose length is a multiple of 4
+// are staged with 16-byte cp.async copies; other D take 4-byte copies
+// (VEC = 1).
 
-#include "flash_aam_common.cuh"
+#include "flash_aam_cosine.cuh"
 
 namespace {
 
 using namespace flash_aam;
 
-__global__ void __launch_bounds__(NTHREADS)
-fwd_partial_kernel(const float* __restrict__ e, const float* __restrict__ w,
-                   const int* __restrict__ labels, const float* __restrict__ zt,
-                   int B, int C, int D, int tiles_per_split, Margin mg,
-                   float* __restrict__ part) {
-  __shared__ __align__(16) float As[BK][BM];  // e chunk, depth-major
-  __shared__ __align__(16) float Bs[BK][BN];  // W chunk, depth-major
-  __shared__ float wsq[BN];                   // sum of squares of each W row
+// The online state of one batch row over the classes seen so far.
+struct RowState {
+  float m, s, zy, cnt;
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // class group: columns tx*TN .. +TN-1
-  const int ty = tid / 16;  // row group: rows ty*TM .. +TM-1
-  const int row0 = blockIdx.x * BM;
+__device__ __forceinline__ void merge(RowState& a, const RowState& b) {
+  const float mn = fmaxf(a.m, b.m);
+  a.s = a.s * expf(a.m - mn) + b.s * expf(b.m - mn);
+  a.m = mn;
+  a.zy += b.zy;
+  a.cnt += b.cnt;
+}
+
+__device__ __forceinline__ RowState shfl_xor(const RowState& a, int mask) {
+  return {__shfl_xor_sync(FULL, a.m, mask), __shfl_xor_sync(FULL, a.s, mask),
+          __shfl_xor_sync(FULL, a.zy, mask), __shfl_xor_sync(FULL, a.cnt, mask)};
+}
+
+// One block per (batch tile blockIdx.x, class split blockIdx.y).
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+fwd_tiles_kernel(const float* __restrict__ e, const float* __restrict__ w,
+                 const int* __restrict__ labels, const float* __restrict__ zt, int B, int C,
+                 int D, int DP, int tiles_per_split, Margin mg, float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  float* es = smem;                // [TB][DP]
+  float* ws0 = es + TB * DP;       // [TC][DP], even class tiles of the split
+  float* ws1 = ws0 + TC * DP;      // [TC][DP], odd ones
+  float* rinv0 = ws1 + TC * DP;    // [TC], 1 / ||w|| of ws0's classes
+  float* rinv1 = rinv0 + TC;       // [TC], of ws1's
+  float* xch = rinv1 + TC;         // [WARPS][4][32]; at the end [WARPS][16][4] row states
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * TB;
   const int split = blockIdx.y;
-  const int n_splits = gridDim.y;
-  const int n_tiles = (C + BN - 1) / BN;
+  const int n_tiles = (C + TC - 1) / TC;
   const int tile_lo = split * tiles_per_split;
   const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
 
-  int lab[TM];
-  float ztr[TM], run_m[TM], run_s[TM], run_zy[TM], run_cnt[TM];
+  tf32x3::stage_rows<VEC>(es, DP, e, D, row0, TB, B, D);
+  tf32x3::stage_rows<VEC>(ws0, DP, w, D, tile_lo * TC, TC, C, D);
+  tf32x3::commit();
+
+  // this thread's rows of the tile, 16 * (w % 4 / 2) + lane / 4 + 8 h (as
+  // cosine_dots lays out dot), and its classes cls0, cls0 + 1 of each tile
+  const int rloc = 16 * ((warp & 3) >> 1) + (lane >> 2);
+  const int cls0 = 8 * cosine_ntile(warp) + 2 * (lane & 3);
+  int lab[2];
+  float ztr[2];
+  RowState st[2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    lab[i] = r < B ? labels[r] : -1;
-    ztr[i] = r < B ? zt[r] : 0.0f;
-    run_m[i] = NEG_INF;
-    run_s[i] = 0.0f;
-    run_zy[i] = 0.0f;
-    run_cnt[i] = 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rloc + 8 * h;
+    const bool ok = r < B;
+    lab[h] = ok ? labels[r] : -1;
+    ztr[h] = ok ? zt[r] : 0.0f;
+    st[h] = {NEG_INF, 0.0f, 0.0f, 0.0f};
   }
+  tf32x3::wait_pending<0>();
+  __syncthreads();
+  tile_rnorms(ws0, DP, rinv0);
 
   for (int t = tile_lo; t < tile_hi; ++t) {
-    const int col0 = t * BN;
-    float acc[TM][TN];
-    dot_tile(e, w, B, C, D, row0, col0, As, Bs, wsq, acc);
+    const bool odd = (t - tile_lo) & 1;
+    __syncthreads();  // tile t and its norms are ready, and every warp is done with t - 1
+    if (t + 1 < tile_hi) {
+      tf32x3::stage_rows<VEC>(odd ? ws0 : ws1, DP, w, D, (t + 1) * TC, TC, C, D);
+      tf32x3::commit();
+    }
+
+    float dot[4];
+    cosine_dots(dot, es, odd ? ws1 : ws0, DP, xch);
+    const float* rinv = odd ? rinv1 : rinv0;
+    const float ri[2] = {rinv[cls0], rinv[cls0 + 1]};
+    // tile t + 1 has landed by now; its norms are taken into the other
+    // buffer, which every warp finished reading before the barrier above
+    tf32x3::wait_pending<0>();
+    __syncthreads();
+    if (t + 1 < tile_hi) tile_rnorms(odd ? ws0 : ws1, DP, odd ? rinv0 : rinv1);
 
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float z[TN];
-      float tile_max = NEG_INF;
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = col0 + tx * TN + j;
-        const bool valid = c < C;
-        const bool is_tgt = valid && c == lab[i];
-        z[j] = margined(cosine(acc[i][j], wsq[tx * TN + j]), is_tgt, mg);
-        if (valid) {
-          tile_max = fmaxf(tile_max, z[j]);
-          if (is_tgt) run_zy[i] += z[j];
-          else if (z[j] > ztr[i]) run_cnt[i] += 1.0f;
+      for (int q = 0; q < 2; ++q) {
+        const int c = t * TC + cls0 + q;
+        if (c >= C) continue;
+        const bool is_tgt = c == lab[h];
+        const float z = margined(__fmul_rn(dot[2 * h + q], ri[q]), is_tgt, mg);
+        if (is_tgt) st[h].zy += z;
+        else if (z > ztr[h]) st[h].cnt += 1.0f;
+        if (z > st[h].m) {
+          st[h].s = st[h].s * expf(st[h].m - z) + 1.0f;
+          st[h].m = z;
+        } else {
+          st[h].s += expf(z - st[h].m);
         }
       }
-      const float m_new = fmaxf(run_m[i], tile_max);
-      float s_tile = 0.0f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        if (col0 + tx * TN + j < C) s_tile += expf(z[j] - m_new);
-      run_s[i] = run_s[i] * expf(run_m[i] - m_new) + s_tile;
-      run_m[i] = m_new;
-    }
   }
 
-  // merge the 16 per-thread states of each row (lanes tx = 0..15 of one
-  // half-warp); lane tx == 0 writes the block's partial state
+  // merge the 16 states of each row: the 4 lanes of a warp that share it
+  // (shuffles), then the 4 warps (through shared memory, in warp order)
+  __syncthreads();  // every warp is done with xch
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float m = run_m[i], s = run_s[i], zy = run_zy[i], cnt = run_cnt[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float m2 = __shfl_xor_sync(FULL, m, off);
-      const float s2 = __shfl_xor_sync(FULL, s, off);
-      zy += __shfl_xor_sync(FULL, zy, off);
-      cnt += __shfl_xor_sync(FULL, cnt, off);
-      const float mn = fmaxf(m, m2);
-      s = s * expf(m - mn) + s2 * expf(m2 - mn);
-      m = mn;
-    }
-    const int r = row0 + ty * TM + i;
-    if (tx == 0 && r < B) {
-      const size_t plane = (size_t)n_splits * B;
-      const size_t at = (size_t)split * B + r;
-      part[at] = m;
-      part[plane + at] = s;
-      part[2 * plane + at] = zy;
-      part[3 * plane + at] = cnt;
+  for (int h = 0; h < 2; ++h) {
+    merge(st[h], shfl_xor(st[h], 1));
+    merge(st[h], shfl_xor(st[h], 2));
+    if ((lane & 3) == 0) {
+      float* o = xch + (warp * 16 + (lane >> 2) + 8 * h) * 4;
+      o[0] = st[h].m, o[1] = st[h].s, o[2] = st[h].zy, o[3] = st[h].cnt;
     }
   }
+  __syncthreads();
+  if (threadIdx.x >= TB) return;
+  const int r = threadIdx.x;
+  const int grp = r >> 4;  // rows [16 grp, 16 grp + 16) are warps 2 grp, 2 grp + 1, + 4, + 5's
+  RowState acc = {NEG_INF, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float* o = xch + ((2 * grp + (k & 1) + 4 * (k >> 1)) * 16 + (r & 15)) * 4;
+    merge(acc, {o[0], o[1], o[2], o[3]});
+  }
+  if (row0 + r >= B) return;
+  const size_t plane = (size_t)gridDim.y * B;
+  const size_t at = (size_t)split * B + row0 + r;
+  part[at] = acc.m;
+  part[plane + at] = acc.s;
+  part[2 * plane + at] = acc.zy;
+  part[3 * plane + at] = acc.cnt;
 }
 
-// Merge the per-split states of each row in split order:
-// lse = M + log(sum_i s_i exp(m_i - M)), zy = sum zy_i, mx = M, cnt = sum cnt_i.
+// Merge the per-split states of each row, one warp a row: lane l takes the
+// splits l, l + 32, ... in order, then a fixed butterfly joins the lanes:
+// mx = M = max_i m_i, lse = M + log(sum_i s_i exp(m_i - M)), zy = sum zy_i
+// (one split holds the target, the others add 0), cnt = sum cnt_i.
 __global__ void merge_kernel(const float* __restrict__ part, int n_splits, int B,
                              float* __restrict__ lse, float* __restrict__ zy,
                              float* __restrict__ mx, float* __restrict__ cnt) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= B) return;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= B) return;  // the whole warp
   const size_t plane = (size_t)n_splits * B;
-  const float* pm = part;
-  const float* ps = part + plane;
-  const float* pz = part + 2 * plane;
-  const float* pc = part + 3 * plane;
   float M = NEG_INF;
-  for (int i = 0; i < n_splits; ++i) M = fmaxf(M, pm[(size_t)i * B + r]);
+  for (int i = lane; i < n_splits; i += 32) M = fmaxf(M, part[(size_t)i * B + r]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(FULL, M, o));
   float S = 0.0f, Z = 0.0f, K = 0.0f;
-  for (int i = 0; i < n_splits; ++i) {
+  for (int i = lane; i < n_splits; i += 32) {
     const size_t at = (size_t)i * B + r;
-    S += ps[at] * expf(pm[at] - M);
-    Z += pz[at];
-    K += pc[at];
+    S += part[plane + at] * expf(part[at] - M);
+    Z += part[2 * plane + at];
+    K += part[3 * plane + at];
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    S += __shfl_xor_sync(FULL, S, o);
+    Z += __shfl_xor_sync(FULL, Z, o);
+    K += __shfl_xor_sync(FULL, K, o);
+  }
+  if (lane) return;
   lse[r] = M + logf(S);
   zy[r] = Z;
   mx[r] = M;
   cnt[r] = K;
 }
 
+template <int VEC>
+cudaError_t launch(const float* e, const float* w, const int* labels, const float* zt, int B,
+                   int C, int D, int tiles_per_split, int n_splits, const Margin& mg,
+                   float* part, float* lse, float* zy, float* mx, float* cnt,
+                   cudaStream_t st) {
+  const int DP = padded_depth(D);
+  const size_t smem = sizeof(float) * (TB * DP + 2 * TC * DP + 2 * TC + WARPS * 128);
+  static_assert(WARPS * 128 >= WARPS * 16 * 4, "xch holds the warps' row states");
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_tiles_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + TB - 1) / TB, n_splits);
+  fwd_tiles_kernel<VEC><<<grid, THREADS, smem, st>>>(e, w, labels, zt, B, C, D, DP,
+                                                     tiles_per_split, mg, part);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  merge_kernel<<<(B + 7) / 8, 256, 0, st>>>(part, n_splits, B, lse, zy, mx, cnt);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int flash_aam_fwd_block_rows() { return BM; }
-int flash_aam_fwd_block_classes() { return BN; }
+int flash_aam_fwd_block_rows() { return TB; }
+int flash_aam_fwd_block_classes() { return TC; }
+int flash_aam_fwd_max_dim() { return DMAX; }
 
 // e (B, D) f32, w (C, D) f32, labels (B,) i32, zt (B,) f32, all contiguous on
 // the card; part is scratch of 4 * n_splits * B floats with
-// n_splits = ceil(ceil(C / BN) / tiles_per_split).  Launches on `stream` and
+// n_splits = ceil(ceil(C / TC) / tiles_per_split).  Launches on `stream` and
 // returns the cudaError_t of the launches (0 on success).
 int flash_aam_fwd(const void* e, const void* w, const void* labels, const void* zt,
                   int B, int C, int D, int tiles_per_split, int n_splits,
                   float s, float cos_m, float sin_m, float th, float mm,
                   void* part, void* lse, void* zy, void* mx, void* cnt,
                   void* stream) {
-  const int n_tiles = (C + BN - 1) / BN;
-  if (B <= 0 || C <= 0 || D <= 0 || tiles_per_split <= 0 ||
+  const int n_tiles = (C + TC - 1) / TC;
+  if (B <= 0 || C <= 0 || D <= 0 || D > DMAX || tiles_per_split <= 0 ||
       n_splits != (n_tiles + tiles_per_split - 1) / tiles_per_split)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Margin mg{s, cos_m, sin_m, th, mm};
-  dim3 grid((B + BM - 1) / BM, n_splits);
-  fwd_partial_kernel<<<grid, NTHREADS, 0, st>>>(
-      static_cast<const float*>(e), static_cast<const float*>(w),
-      static_cast<const int*>(labels), static_cast<const float*>(zt), B, C, D,
-      tiles_per_split, mg, static_cast<float*>(part));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  merge_kernel<<<(B + 127) / 128, 128, 0, st>>>(
-      static_cast<const float*>(part), n_splits, B, static_cast<float*>(lse),
-      static_cast<float*>(zy), static_cast<float*>(mx), static_cast<float*>(cnt));
-  return (int)cudaGetLastError();
+  const float* ef = static_cast<const float*>(e);
+  const float* wf = static_cast<const float*>(w);
+  const int* lab = static_cast<const int*>(labels);
+  const float* ztf = static_cast<const float*>(zt);
+  float* pf = static_cast<float*>(part);
+  float* out[4] = {static_cast<float*>(lse), static_cast<float*>(zy), static_cast<float*>(mx),
+                   static_cast<float*>(cnt)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // 16-byte copies need every row to start on a 16-byte boundary
+  const bool aligned = D % 4 == 0 && reinterpret_cast<uintptr_t>(e) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const cudaError_t err =
+      aligned ? launch<4>(ef, wf, lab, ztf, B, C, D, tiles_per_split, n_splits, mg, pf,
+                          out[0], out[1], out[2], out[3], st)
+              : launch<1>(ef, wf, lab, ztf, B, C, D, tiles_per_split, n_splits, mg, pf,
+                          out[0], out[1], out[2], out[3], st);
+  return (int)err;
 }
 
 }  // extern "C"

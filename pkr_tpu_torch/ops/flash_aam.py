@@ -42,10 +42,9 @@ DEFAULT_TILE = 2048
 _NEG_INF = -1e30
 _KERNEL = "flash_aam_fwd"
 _BWD_KERNEL = "flash_aam_bwd"
-# CUDA blocks to aim for when the class axis is split: a few per SM (two
-# of the backward's blocks fill an SM's shared memory)
-_BLOCKS_PER_SM = 4
-_BWD_BLOCKS_PER_SM = 2
+# CUDA blocks per SM to aim for when the class axis is split: two of either
+# kernel's blocks fill an SM's shared memory at D = 256
+_BLOCKS_PER_SM = 2
 
 
 def _margin_consts(m: float):
@@ -63,6 +62,13 @@ def _margined_target_z(e_hat: torch.Tensor, weight: torch.Tensor,
                                          min=1e-24))
     cos = torch.sum(e_hat * w_hat, dim=1)
     return _phi(cos, m) * s
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b without TF32: the product of the plain forward and each product
+    of the plain backward."""
+    with full_f32():
+        return torch.matmul(a, b)
 
 
 def flash_aam_fwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
@@ -83,8 +89,7 @@ def flash_aam_fwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
     for c0 in range(0, C, tile):
         w = weight[c0:c0 + tile].to(torch.float32)
         wnorm = torch.sqrt(torch.clamp(torch.sum(w * w, dim=1, keepdim=True), min=1e-24))
-        with full_f32():
-            cos = torch.matmul(e_hat, (w / wnorm).T)  # (B, tile)
+        cos = _mm(e_hat, (w / wnorm).T)  # (B, tile)
         col = torch.arange(c0, c0 + w.shape[0], device=dev)[None, :]
         is_tgt = col == lab
         z = torch.where(is_tgt, _phi(cos, m), cos) * s
@@ -95,12 +100,6 @@ def flash_aam_fwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
         zy = zy + torch.sum(torch.where(is_tgt, z, 0.0), dim=1)
         cnt = cnt + torch.sum(~is_tgt & (z > zt2), dim=1).to(torch.float32)
     return run_m + torch.log(run_s), zy, run_m, cnt
-
-
-def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b without TF32: each product of the plain backward."""
-    with full_f32():
-        return torch.matmul(a, b)
 
 
 def flash_aam_bwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
@@ -173,13 +172,15 @@ def _on_card(e_hat, others, op):
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """(launch function, block rows, block classes) of the built library."""
+    """(launch function, block rows, block classes, largest D) of the built
+    library."""
     lib = _native.load(_KERNEL)
     fn = lib.flash_aam_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
                    + [ctypes.c_void_p] * 6)
-    return fn, lib.flash_aam_fwd_block_rows(), lib.flash_aam_fwd_block_classes()
+    return (fn, lib.flash_aam_fwd_block_rows(), lib.flash_aam_fwd_block_classes(),
+            lib.flash_aam_fwd_max_dim())
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,25 +188,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _n_splits(n_tiles, n_btiles, dev, blocks_per_sm):
+def _n_splits(n_tiles, n_btiles, dev):
     """(class tiles per split, splits) so that batch tiles × splits fill the
-    card with about ``blocks_per_sm`` blocks per SM."""
-    target = blocks_per_sm * _sm_count(dev.index if dev.index is not None
-                                       else torch.cuda.current_device())
+    card with about ``_BLOCKS_PER_SM`` blocks per SM."""
+    target = _BLOCKS_PER_SM * _sm_count(dev.index if dev.index is not None
+                                        else torch.cuda.current_device())
     tiles_per_split = max(1, -(-n_tiles * n_btiles // target))
     return tiles_per_split, -(-n_tiles // tiles_per_split)
 
 
 def _launch(e_hat, weight, labels, zt, m, s):
-    fn, bm, bn = _kernel()
-    dev = e_hat.device
-    e_hat = e_hat.contiguous()
-    weight = weight.contiguous()
-    labels = labels.to(torch.int32).contiguous()
-    zt = zt.contiguous()
+    fn, bm, bn, max_d = _kernel()
     B, D = e_hat.shape
     C = weight.shape[0]
-    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), dev, _BLOCKS_PER_SM)
+    if D > max_d:
+        raise ValueError(f"the flash_aam_fwd kernel takes D <= {max_d}, got {D}")
+    dev = e_hat.device
+    e_hat, weight, zt = (t.contiguous() for t in (e_hat, weight, zt))
+    labels = labels.to(torch.int32).contiguous()
+    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), dev)
     part = torch.empty((4, n_splits, B), dtype=torch.float32, device=dev)
     out = torch.empty((4, B), dtype=torch.float32, device=dev)
     cos_m, sin_m, th, mm = _margin_consts(m)
@@ -228,9 +229,9 @@ def flash_aam_fwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tenso
 
     e_hat (B, D) f32 L2-normalized embeddings, weight (C, D) f32 raw class
     weights, labels (B,) integer, zt (B,) f32 margined target logits.  A CUDA
-    tensor launches the kernel (counted in ``flash_aam_fwd.launches``) or
-    raises; a CPU tensor runs the plain version (``tile`` sets its class
-    tile; the kernel tiles by its own constants)."""
+    tensor launches the kernel (counted in ``flash_aam_fwd.launches``; D <=
+    256) or raises; a CPU tensor runs the plain version (``tile`` sets its
+    class tile; the kernel tiles by its own 32 × 32 blocks)."""
     _check_inputs(e_hat, weight, labels, (zt,), ("zt",))
     if _on_card(e_hat, {"weight": weight, "labels": labels, "zt": zt}, "flash_aam_fwd"):
         return _launch(e_hat, weight, labels, zt, m, s)
@@ -262,8 +263,7 @@ def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
     dev = e_hat.device
     e_hat, weight, lse, g = (t.contiguous() for t in (e_hat, weight, lse, g))
     labels = labels.to(torch.int32).contiguous()
-    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), dev,
-                                          _BWD_BLOCKS_PER_SM)
+    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), dev)
     part = torch.empty((n_splits, B, D), dtype=torch.float32, device=dev)
     de = torch.empty((B, D), dtype=torch.float32, device=dev)
     dw = torch.empty((C, D), dtype=torch.float32, device=dev)

@@ -1,19 +1,22 @@
-"""The 3×TF32 arithmetic of the flash backward kernel, emulated on the CPU.
+"""The 3×TF32 arithmetic of the flash kernels, emulated on the CPU.
 
-``pkr_tpu_torch/csrc/flash_aam_bwd.cu`` runs its three products (the cosine
-tile ê·Wᵀ, aᵀ·ê and a·ŵ) on the tensor cores in 3×TF32: each f32 operand x
-splits into big = rna_tf32(x) and small = rna_tf32(x − big), and a product
-sums a_small·b_big + a_big·b_small + a_big·b_big in f32.  No card runs here,
-so this file emulates that arithmetic with int32 bit operations (rna_tf32 is
+``pkr_tpu_torch/csrc/flash_aam_fwd.cu`` forms its cosine tile ê·Wᵀ, and
+``pkr_tpu_torch/csrc/flash_aam_bwd.cu`` that tile and its two other products
+(aᵀ·ê and a·ŵ), on the tensor cores in 3×TF32: each f32 operand x splits
+into big = rna_tf32(x) and small = rna_tf32(x − big), and a product sums
+a_small·b_big + a_big·b_small + a_big·b_big in f32.  No card runs here, so
+this file emulates that arithmetic with int32 bit operations (rna_tf32 is
 ``cvt.rna.tf32.f32``: keep 10 mantissa bits, round to nearest, ties away
-from zero), puts it in place of each product of the port's plain backward
-(``flash_aam._mm``), and holds the result against pkr_tpu's Pallas backward
-kernel in interpret mode, at the cases of tests/test_torch_flash_aam.py:
-every row of dê and dW within 1e-3 of its own norm, but the rows of
-examples whose target cosine sits at the sin clip (see _off_the_clip); the
-saturated case's cosine is exactly 1.0.  It also shows that the split's
-error is at least 10× below that of one TF32 product (big parts only), so
-the checks can tell the two apart.
+from zero), puts it in place of each product of the port's plain forward
+and backward (``flash_aam._mm``), and holds the results against pkr_tpu's
+Pallas kernels in interpret mode, at the cases of
+tests/test_torch_flash_aam.py: the forward's (lse, zy, mx) within 1e-4 (the
+bar of tests/test_torch_flash_aam.py) with the rank count and top-1/top-5
+equal; every row of dê and dW within 1e-3 of its own norm; both but the
+rows of examples whose target cosine sits at the sin clip (see
+_off_the_clip).  The saturated case's cosine is exactly 1.0.  It also shows
+that the split's error is at least 10× below that of one TF32 product (big
+parts only), so the checks can tell the two apart.
 """
 
 import numpy as np
@@ -147,6 +150,32 @@ def _off_the_clip(emb, w, labels):
     classes = np.ones(len(w), bool)
     classes[labels[~rows]] = False
     return rows, classes
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_tf32x3_fwd_matches_pallas_fwd(name, monkeypatch):
+    """(lse, zy, mx, cnt) of the plain forward with its product in emulated
+    3×TF32 against the Pallas forward kernel (interpret mode): lse, zy and
+    mx within 1e-4, cnt, top-1 and top-5 equal, on every example but those
+    at the sin clip (_off_the_clip), which only the margin and saturated
+    cases have."""
+    (emb, w, labels), tile = CASES[name]
+    e_hat_j, _ = jax_flash._normalize(jnp.asarray(emb))
+    ref = [np.asarray(r) for r in jax_flash._fwd_pallas(
+        e_hat_j, jnp.asarray(w), jnp.asarray(labels), 0.2, 30.0, tile, True)]
+    monkeypatch.setattr(port_flash, "_mm", mm_tf32x3)
+    e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+    wt, lt = torch.from_numpy(w), torch.from_numpy(labels)
+    zt = port_flash._margined_target_z(e_hat, wt, lt, 0.2, 30.0)
+    got = [g.numpy() for g in port_flash.flash_aam_fwd(e_hat, wt, lt, zt, 0.2, 30.0, tile)]
+    rows, _ = _off_the_clip(emb, w, labels)
+    assert rows.all() == (name not in ("margin_branches", "saturated"))
+    for g, r in zip(got[:3], ref[:3]):
+        assert np.isfinite(g).all() and g.shape == r.shape
+        np.testing.assert_allclose(g[rows], r[rows], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got[3][rows], ref[3][rows])
+    np.testing.assert_array_equal((got[1] >= got[2])[rows], (ref[1] >= ref[2])[rows])
+    np.testing.assert_array_equal((got[3] < 5)[rows], (ref[3] < 5)[rows])
 
 
 @pytest.mark.parametrize("name", list(CASES))

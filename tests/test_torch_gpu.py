@@ -16,9 +16,12 @@ the whole tensor could not see it), and within 1e-3 of the largest entry
 (+1e-6).  The confident case (every target p ≈ 0.993, where a = p − 1
 cancels and s·Δcos/(1 − p) magnifies any cosine rounding ~4000×) is held
 to the plain version run in f64: the f32 plain version is itself ~3e-3 off
-there.  Two backward calls on the same inputs give the same bits.  The
-flash gradients against the dense head's autograd (cuBLAS f32) at rtol
-2e-3, atol 1e-6 as tests/test_flash_aam.py, and row by row within 1e-3.
+there.  Two calls of either kernel on the same inputs give the same bits.
+The two kernels form the same cosine bits: with one class, the backward's
+gradients from the forward's own lse are exactly 0.  Both take D <= 256
+and raise ValueError above it.  The flash gradients against the dense
+head's autograd (cuBLAS f32) at rtol 2e-3, atol 1e-6 as
+tests/test_flash_aam.py, and row by row within 1e-3.
 """
 
 import numpy as np
@@ -35,7 +38,8 @@ def _card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,C,D", [(256, 7325, 256), (37, 1000, 96), (8, 50, 32)])
+@pytest.mark.parametrize("B,C,D", [(256, 7325, 256), (37, 1000, 96), (8, 50, 32),
+                                   (64, 1000, 37)])
 def test_flash_aam_fwd_matches_plain(B, C, D):
     dev = _card()
     rng = np.random.default_rng(B + C)
@@ -64,6 +68,55 @@ def test_flash_aam_fwd_rejects_bad_inputs():
         flash_aam.flash_aam_fwd(e, torch.ones((5, 8), device="cpu"),
                                 torch.zeros(4, dtype=torch.int64, device=dev),
                                 torch.zeros(4, device=dev))
+
+
+@pytest.mark.gpu
+def test_flash_aam_fwd_rejects_deep_rows():
+    dev = _card()
+    e = torch.zeros((4, 257), device=dev)
+    with pytest.raises(ValueError, match="D <= 256"):
+        flash_aam.flash_aam_fwd(e, torch.ones((5, 257), device=dev),
+                                torch.zeros(4, dtype=torch.int64, device=dev),
+                                torch.zeros(4, device=dev))
+
+
+@pytest.mark.gpu
+def test_flash_aam_fwd_is_deterministic():
+    dev = _card()
+    rng = np.random.default_rng(3)
+    emb = torch.from_numpy(rng.standard_normal((256, 256)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((7325, 256)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, 7325, 256)).to(dev)
+    e_hat, _ = flash_aam._normalize(emb)
+    zt = flash_aam._margined_target_z(e_hat, w, labels, 0.2, 30.0)
+    first = flash_aam.flash_aam_fwd(e_hat, w, labels, zt)
+    second = flash_aam.flash_aam_fwd(e_hat, w, labels, zt)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("B,D", [(256, 256), (100, 37)])
+def test_fwd_and_bwd_cosines_agree_bit_for_bit(B, D, exact):
+    """With one class and every label 0, the forward's lse is its zy, so the
+    backward's p = exp(z − lse) is exactly 1 and its gradients exactly 0
+    where both kernels computed the same cosine bits (the f32-FMA forward of
+    earlier versions fails this)."""
+    dev = _card()
+    from chip_smoke import consistency_inputs
+
+    emb, w, labels = consistency_inputs(torch, B, D, B + D, exact)
+    zt = flash_aam._margined_target_z(emb, w, labels, 0.2, 30.0)
+    lse, zy, mx, cnt = flash_aam.flash_aam_fwd(emb, w, labels, zt)
+    assert torch.equal(lse, zy) and torch.equal(zy, mx) and not bool(cnt.any())
+    de, dw = flash_aam.flash_aam_bwd(emb, w, labels, lse, torch.full((B,), 1.0 / B, device=dev))
+    torch.cuda.synchronize()
+    assert float(de.abs().max()) == 0.0 and float(dw.abs().max()) == 0.0
+    if exact:  # rows 0..4 sit at cos = 1.0 and 1..4 ulps below it: their
+        # margined logits, formed on the CPU with the kernels' roundings
+        cos = torch.tensor([1.0 - k * 2.0 ** -24 for k in range(5)])
+        assert zy[:5].tolist() == (flash_aam._phi(cos, 0.2) * 30.0).tolist()
 
 
 def _row_rel_err(got, ref):
