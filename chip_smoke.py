@@ -12,15 +12,16 @@ Phases, one JSON line each:
           and the tensor-core HMMA instructions cuobjdump finds in each:
           both kernels run on the tensor cores, so neither may have none);
   kernel  each kernel against its plain PyTorch version on the card, at the
-          shapes of the paths and beyond (a gradient row by row, each row
-          within 1e-3 of its own norm, with planted faults the check must
-          reject; the backward also with every target p ≈ 0.993 against the
-          plain version in f64, at D = 37, and twice for the same bits), with
-          its time, the plain version's time, a dense library yardstick's
-          time and two roofline bounds (f32 CUDA cores; 3×TF32 tensor cores);
-          then the two kernels against each other: with one class the
-          backward's gradients are exactly 0 iff both formed the same cosine
-          bits (check_consistency);
+          shapes of the paths and beyond, D = 256 and the chunked D = 512 and
+          300 (a gradient row by row, each row within 1e-3 of its own norm,
+          with planted faults the check must reject; the backward also with
+          every target p ≈ 0.993 against the plain version in f64, at D = 37,
+          and twice for the same bits), with its time, the plain version's
+          time, a dense library yardstick's time and two roofline bounds (f32
+          CUDA cores; 3×TF32 tensor cores); then the two kernels against each
+          other: with one class the backward's gradients are exactly 0 iff
+          both formed the same cosine bits (check_consistency); and one flash
+          and one dense train step of a 512-wide embedding agree;
   slice   the serving path at full width — 128 six-second utterances through
           wav_to_train_feats → ResNet-34 SpeakerModel (7325-speaker AAM head,
           seeded random weights) → extract_embeddings → the flash eval step →
@@ -35,6 +36,14 @@ Phases, one JSON line each:
           conv-MFU;
   train_profile  the device and wall time of one train step per head and
           its longest kernels;
+  corpus  training and extraction from a Kaldi data dir at the train
+          phase's width: a synthetic CM-compressed feats.ark/scp of 7325
+          speakers × 2 utterances (utt2spk, spk2utt, utt2spkid, a cv split);
+          one epoch of train_and_validate on the host TrainLoader (native
+          reader), one on the card-resident DeviceCacheLoader, and
+          extraction over the quantized transport → cosine scores → EER,
+          with loader rates, the native reader's cost per call, step times
+          and bytes sent to the card;
   kernels every kernel with its launches on the paths and its errors.
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
@@ -119,16 +128,24 @@ def device_ms(torch, fn, iters, only=None):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    n = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and (only is None or any(o in e.name for o in only)):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-            n += 1
+    # a trace now and then comes back without the device activities of
+    # launches that other traces of the same call show: trace again, up to
+    # three times, before reporting none
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        n = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and (only is None or
+                                                     any(o in e.name for o in only)):
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / iters)
+                n += 1
+        if n:
+            break
     if not n:
         return None, 0, []
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -219,7 +236,12 @@ def phase_build():
         check(hmma > 0, f"the {name} library has no HMMA instruction")
 
 
-CONFIDENT_COS = 0.68  # target cosine of the confident case: target p ≈ 0.993
+# target cosine of the confident case, by D: every target p ≈ 0.993 at
+# C = 7325.  The non-target logits s·cos spread as s/√D, so they sum to
+# about (C − 1)·exp(s²/2D), and the target logit s·phi(cos) must be
+# ln(0.993/0.007) above that sum's log: cos = 0.68 at D = 256, 0.654 at
+# D = 512
+CONFIDENT_COS = {256: 0.68, 512: 0.654}
 
 
 def _flash_inputs(torch, B, C, D, seed, saturated=False, confident=False):
@@ -239,14 +261,15 @@ def _flash_inputs(torch, B, C, D, seed, saturated=False, confident=False):
     w = torch.randn((C, D), generator=g, device=dev)
     labels = torch.randint(0, C, (B,), generator=g, device=dev)
     if confident:
-        # each embedding at cosine CONFIDENT_COS to its class row (a random
-        # unit direction orthogonal to it makes up the rest): with C = 7325
-        # and D = 256 every target p is ≈ 0.993, so a = p − 1 cancels
+        # each embedding at cosine CONFIDENT_COS[D] to its class row (a
+        # random unit direction orthogonal to it makes up the rest): with
+        # C = 7325 every target p is ≈ 0.993, so a = p − 1 cancels
         w_y = w[labels] / w[labels].norm(dim=1, keepdim=True)
         u = torch.randn((B, D), generator=g, device=dev)
         u = u - (u * w_y).sum(dim=1, keepdim=True) * w_y
         u = u / u.norm(dim=1, keepdim=True)
-        return CONFIDENT_COS * w_y + (1 - CONFIDENT_COS ** 2) ** 0.5 * u, w, labels
+        cos = CONFIDENT_COS[D]
+        return cos * w_y + (1 - cos ** 2) ** 0.5 * u, w, labels
     # embeddings half-way to their class (target cosine ≈ 0.45): the target
     # wins for some rows and loses for others, so top-1/top-5 are exercised
     emb = 0.5 * w[labels] + torch.randn((B, D), generator=g, device=dev)
@@ -264,7 +287,7 @@ def _rank_gaps(torch, emb, w, labels, rows, k):
     return (tgt - kth).abs()
 
 
-FWD_KERNELS = ("fwd_tiles_kernel", "merge_kernel")
+FWD_KERNELS = ("fwd_tiles_kernel", "fwd_chunks_kernel", "merge_kernel")
 
 
 def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
@@ -321,7 +344,7 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
     return row
 
 
-BWD_KERNELS = ("bwd_tiles_kernel", "bwd_de_sum_kernel")
+BWD_KERNELS = ("bwd_tiles_kernel", "bwd_chunks_kernel", "bwd_de_sum_kernel")
 ROW_TOL = 1e-3
 
 
@@ -449,8 +472,9 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
 def consistency_inputs(torch, B, D, seed, exact):
     """One class row w (C = 1) and B unit embeddings, every label 0.
 
-    `exact`: w has entries ±1 and ±2 (random signs) with Σw² a power of 4,
-    so 1/‖w‖ is a power of two and every product and sum is exact: row 0 is
+    `exact`: w has entries ±1 and ±2 (random signs) and, where D ≢ 1 (mod 3),
+    one or two zeros, with Σw² a power of 4, so 1/‖w‖ is a power of two and
+    every product and sum is exact: row 0 is
     w/‖w‖ (cosine exactly 1.0), rows j = 1..4 the same with one entry lowered
     so that the cosine is exactly 1 − j·2⁻²⁴ (j ulps below 1.0, the sin
     clip); the rest lie at cosines spread over (−1, 1).  Otherwise w is
@@ -458,9 +482,12 @@ def consistency_inputs(torch, B, D, seed, exact):
     scaled by 1 + j·2⁻²⁴ (j = −16..16), sweep the floats around 1.0."""
     rng = np.random.default_rng(seed)
     if exact:
-        n_two, rem = divmod(4 ** int(np.ceil(np.log(D) / np.log(4))) - D, 3)
-        check(rem == 0, f"the exact construction needs D ≡ 1 (mod 3), not {D}")
-        w = np.where(np.arange(D) < n_two, 2.0, 1.0) * rng.choice([-1.0, 1.0], D)
+        n_zero = (D - 1) % 3
+        n_two = (4 ** int(np.ceil(np.log(D) / np.log(4))) - D + n_zero) // 3
+        check(n_two + n_zero < D, f"no exact construction at D = {D}")
+        i = np.arange(D)
+        w = (np.where(i < n_two, 2.0, np.where(i < n_two + n_zero, 0.0, 1.0))
+             * rng.choice([-1.0, 1.0], D))
         rinv = 1.0 / np.sqrt(np.sum(w * w))
         w_hat = w * rinv
         near = np.repeat(w_hat[None, :], 5, axis=0)
@@ -521,30 +548,60 @@ def check_consistency(torch, B, D, seed, exact):
     return row
 
 
-def phase_kernel(torch):
-    D = 256
-    cases = [("slice_eval", BATCH, SPK, True), ("path_b256", 256, SPK, True),
-             ("path_b1024", 1024, SPK, True), ("scale_c131072", 256, 131072, True),
-             ("ragged", 100, 7001, False)]
+def phase_kernel(torch, smi_line):
+    # D > 256 (the chunked path of both kernels): the 512-wide embedding at
+    # the train batch, and a ragged 100 x 7001 x 300
+    cases = [("slice_eval", BATCH, SPK, 256, True), ("path_b256", 256, SPK, 256, True),
+             ("path_b1024", 1024, SPK, 256, True), ("scale_c131072", 256, 131072, 256, True),
+             ("ragged", 100, 7001, 256, False), ("path_b256_d512", 256, SPK, 512, True),
+             ("ragged_d300", 100, 7001, 300, True)]
     rows = [check_flash_case(torch, name, B, C, D, seed=i, timed=timed)
-            for i, (name, B, C, timed) in enumerate(cases)]
-    rows.append(check_flash_case(torch, "saturated", 4, 300, D, seed=9, saturated=True,
+            for i, (name, B, C, D, timed) in enumerate(cases)]
+    rows.append(check_flash_case(torch, "saturated", 4, 300, 256, seed=9, saturated=True,
                                  timed=False))
-    bwd_cases = [("train_b256", TRAIN_B, SPK, True), ("path_b1024", 1024, SPK, True),
-                 ("scale_c131072", 256, 131072, True), ("ragged", 100, 7001, True)]
+    bwd_cases = [("train_b256", TRAIN_B, SPK, 256, True), ("path_b1024", 1024, SPK, 256, True),
+                 ("scale_c131072", 256, 131072, 256, True), ("ragged", 100, 7001, 256, True),
+                 ("train_b256_d512", TRAIN_B, SPK, 512, True),
+                 ("ragged_d300", 100, 7001, 300, True)]
     bwd_rows = [check_flash_bwd_case(torch, name, B, C, D, seed=20 + i, timed=timed,
-                                     repeat=(i == 0))
-                for i, (name, B, C, timed) in enumerate(bwd_cases)]
-    bwd_rows.append(check_flash_bwd_case(torch, "saturated", 4, 300, D, seed=29,
+                                     repeat=(i in (0, 4)))
+                for i, (name, B, C, D, timed) in enumerate(bwd_cases)]
+    bwd_rows.append(check_flash_bwd_case(torch, "saturated", 4, 300, 256, seed=29,
                                          saturated=True, timed=False))
-    bwd_rows.append(check_flash_bwd_case(torch, "confident", TRAIN_B, SPK, D, seed=30,
-                                         timed=False, confident=True))
+    for name, D, seed in (("confident", 256, 30), ("confident_d512", 512, 32)):
+        bwd_rows.append(check_flash_bwd_case(torch, name, TRAIN_B, SPK, D, seed=seed,
+                                             timed=False, confident=True))
     bwd_rows.append(check_flash_bwd_case(torch, "ragged_depth", 100, 7001, 37, seed=31,
                                          timed=False))
-    for i, (B, D) in enumerate(((256, 256), (100, 37))):
+    for i, (B, D) in enumerate(((256, 256), (100, 37), (256, 512), (100, 300))):
         for exact in (True, False):
             check_consistency(torch, B, D, seed=40 + i, exact=exact)
+    check_wide_train(torch, smi_line)
     return rows, bwd_rows
+
+
+WIDE_B = 128
+
+
+def check_wide_train(torch, smi_line):
+    """A 512-wide embedding (SpeakerModel(emb_dim=512), D = 512: the chunked
+    kernels): one flash step and one dense step from the same weights agree
+    (flash_dense_agree)."""
+    from pkr_tpu_torch.models import SpeakerModel
+    from pkr_tpu_torch.train import cosine_epoch_lr, make_train_step
+
+    dev = torch.device("cuda")
+    torch.manual_seed(3)
+    model = SpeakerModel(SPK, 40, "mean+std", "AAM", trunk="resnet34", emb_dim=512,
+                         dtype=torch.bfloat16, device=dev)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((WIDE_B, 40, TRAIN_T), generator=gen, device=dev)
+    y = torch.randint(0, SPK, (WIDE_B,), generator=gen, device=dev)
+    agree = flash_dense_agree(torch, model, init, make_train_step(model, flash_aam=True),
+                              make_train_step(model), x, y, cosine_epoch_lr(0.1, 10)(0))
+    emit({"phase": "kernel", "kernel": "train_step", "case": "emb_dim_512", "B": WIDE_B,
+          "C": SPK, "D": 512, "agree": agree, "card": smi_line})
 
 
 def phase_slice(torch, smi_line):
@@ -688,14 +745,56 @@ def _median_step_ms(torch, step, state, x, y, lr, windows=3, steps=4):
     return float(np.median(times)), times, m
 
 
+def flash_dense_agree(torch, model, init, flash_step, dense_step, x, y, lr):
+    """One flash step and one dense step from the same weights agree: the
+    losses within 2e-4, and the head's gradients, compared on one embedding
+    batch (cuDNN's backward is not deterministic, so trunk parameters are
+    not compared bit for bit), each row within ROW_TOL of its own norm, with
+    planted faults the row check must reject."""
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.ops.aam import aam_logits
+    from pkr_tpu_torch.train import create_train_state, cross_entropy
+
+    agree = {}
+    for tag, step in (("flash", flash_step), ("dense", dense_step)):
+        model.load_state_dict(init)
+        _, m = step(create_train_state(model), x, y, lr)
+        agree[f"{tag}_loss"] = float(m["loss"])
+    check(abs(agree["flash_loss"] - agree["dense_loss"]) <= 2e-4,
+          f"flash vs dense step loss {agree}")
+    model.load_state_dict(init)
+    model.train()
+    with torch.no_grad():
+        emb = model.head_input(x)
+    grads = {}
+    for tag in ("flash", "dense"):
+        e = emb.detach().clone().requires_grad_(True)
+        w = model.last.weight.detach().clone().requires_grad_(True)
+        if tag == "flash":
+            loss = fa.flash_aam_loss(e, w, y, model.m, model.s)
+        else:
+            loss = cross_entropy(aam_logits(e, w, y, model.m, model.s), y)
+        grads[tag] = torch.autograd.grad(loss, (e, w))
+    for i, tag in enumerate(("emb", "last_weight")):
+        got, ref = grads["flash"][i], grads["dense"][i]
+        rel = row_rel_err(torch, got, ref)
+        agree[f"{tag}_grad_row_rel"] = rel
+        agree[f"{tag}_grad_max_rel"] = float((got - ref).abs().max() / ref.abs().max())
+        check(rel <= ROW_TOL, f"flash vs dense {tag} gradient: row error {rel}")
+        faults = planted_faults(torch, got, ref, y if tag == "last_weight" else None)
+        agree[f"{tag}_planted"] = {k: v[0] for k, v in faults.items()}
+        for k, (f_rel, _) in faults.items():
+            check(f_rel > ROW_TOL, f"the row check missed the planted {tag} fault {k}")
+    return agree
+
+
 def phase_train(torch, smi_line):
     import io
 
     from pkr_tpu_torch.models import SpeakerModel
     from pkr_tpu_torch.ops import flash_aam as fa
-    from pkr_tpu_torch.ops.aam import aam_logits
-    from pkr_tpu_torch.train import (cosine_epoch_lr, create_train_state, cross_entropy,
-                                     make_train_step, train_and_validate)
+    from pkr_tpu_torch.train import (cosine_epoch_lr, create_train_state, make_train_step,
+                                     train_and_validate)
     from pkr_tpu_torch.utils import ProgressLogger
 
     dev = torch.device("cuda")
@@ -747,40 +846,7 @@ def phase_train(torch, smi_line):
                                                       f"epoch {state.epoch}")
     check(len(epochs) == 1 and np.isfinite(epochs[0]["loss"]), f"cv {epochs}")
 
-    # one flash step and one dense step from the same weights agree; the
-    # head's gradients are compared on one embedding batch (cuDNN's backward
-    # is not deterministic, so trunk parameters are not compared bit for
-    # bit), each row of them within ROW_TOL of its own norm
-    agree = {}
-    for tag, step in (("flash", flash_step), ("dense", dense_step)):
-        model.load_state_dict(init)
-        _, m = step(create_train_state(model), x, y, lr)
-        agree[f"{tag}_loss"] = float(m["loss"])
-    check(abs(agree["flash_loss"] - agree["dense_loss"]) <= 2e-4,
-          f"flash vs dense step loss {agree}")
-    model.load_state_dict(init)
-    model.train()
-    with torch.no_grad():
-        emb = model.head_input(x)
-    grads = {}
-    for tag in ("flash", "dense"):
-        e = emb.detach().clone().requires_grad_(True)
-        w = model.last.weight.detach().clone().requires_grad_(True)
-        if tag == "flash":
-            loss = fa.flash_aam_loss(e, w, y, model.m, model.s)
-        else:
-            loss = cross_entropy(aam_logits(e, w, y, model.m, model.s), y)
-        grads[tag] = torch.autograd.grad(loss, (e, w))
-    for i, tag in enumerate(("emb", "last_weight")):
-        got, ref = grads["flash"][i], grads["dense"][i]
-        rel = row_rel_err(torch, got, ref)
-        agree[f"{tag}_grad_row_rel"] = rel
-        agree[f"{tag}_grad_max_rel"] = float((got - ref).abs().max() / ref.abs().max())
-        check(rel <= ROW_TOL, f"flash vs dense {tag} gradient: row error {rel}")
-        faults = planted_faults(torch, got, ref, y if tag == "last_weight" else None)
-        agree[f"{tag}_planted"] = {k: v[0] for k, v in faults.items()}
-        for k, (f_rel, _) in faults.items():
-            check(f_rel > ROW_TOL, f"the row check missed the planted {tag} fault {k}")
+    agree = flash_dense_agree(torch, model, init, flash_step, dense_step, x, y, lr)
 
     # throughput: median of a few windows per head
     flops = resnet34_train_flops(TRAIN_B, 40, TRAIN_T)
@@ -811,6 +877,307 @@ def phase_train(torch, smi_line):
                        "busy": None if dev_ms is None else dev_ms / wall,
                        "flash_kernels_ms": head, "top": top}
     emit({"phase": "train_profile", "batch": TRAIN_B, "stages": stages, "card": smi_line})
+    return launches
+
+
+CORPUS_UTTS_PER_SPK = 2
+CORPUS_CV = 512       # utterances in the cv split (train_cv_split, by utterance)
+EXTRACT_SPK = 256     # speakers whose utterances are extracted and scored
+WINDOW = 8            # steps per timing window (train_and_validate's print_freq)
+
+
+def write_corpus(root, seed=0):
+    """A synthetic Kaldi data dir under `root`: SPK speakers × 2 utterances
+    of 250–450 frames (every 97th one 120–199, shorter than the crop) of 40
+    log-mel-like values (a speaker's envelope, a channel offset per
+    utterance, frame noise), as CM-compressed feats.ark/feats.scp, utt2spk,
+    spk2utt and utt2spkid (the recipe's data prep: assign_spk_ids,
+    train_cv_split); `train` and `cv` subdirectories hold the split.
+    Returns (DataDir of everything, number of frames)."""
+    from pkr_tpu_torch.io import DataDir, kaldi_ark
+
+    rng = np.random.default_rng(seed)
+    envelope = rng.uniform(4.0, 14.0, (SPK, 40)).astype(np.float32)
+    utt2spk, frames = {}, 0
+    with kaldi_ark.write_ark_scp(os.path.join(root, "feats.ark"),
+                                 os.path.join(root, "feats.scp"), compress=True) as w:
+        for s in range(SPK):
+            for j in range(CORPUS_UTTS_PER_SPK):
+                key = f"spk{s:04d}-u{j}"
+                n = len(utt2spk)
+                rows = int(rng.integers(120, 200) if n % 97 == 5 else rng.integers(250, 451))
+                mat = (envelope[s] + rng.normal(0.0, 1.0, 40).astype(np.float32)
+                       + 1.5 * rng.standard_normal((rows, 40), dtype=np.float32))
+                w.write(key, mat)
+                utt2spk[key] = f"spk{s:04d}"
+                frames += rows
+    scp = {k: v for k, v in (ln.split(None, 1) for ln in
+                             open(os.path.join(root, "feats.scp")).read().splitlines())}
+    data, n_spk = DataDir({"utt2spk": utt2spk, "feats.scp": scp}).make_spk2utt().assign_spk_ids()
+    check(n_spk == SPK, f"{n_spk} speakers")
+    data.save(root)
+    train, cv = data.train_cv_split(CORPUS_CV / len(utt2spk), seed=seed)
+    train.save(os.path.join(root, "train"))
+    cv.save(os.path.join(root, "cv"))
+    return data, frames
+
+
+class _Records:
+    """A ProgressLogger stand-in that keeps every record with its host time:
+    train_and_validate logs after a synchronize every print_freq steps."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, msg, **metrics):
+        self.records.append((time.perf_counter(), metrics))
+
+
+class _TimedLoader:
+    """Wraps a loader: counts its batches and stamps the epoch's start."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.t0 = None
+
+    def epoch(self, epoch):
+        self.t0 = time.perf_counter()
+        yield from self.loader.epoch(epoch)
+
+
+def _train_epoch(torch, model, state, loader, cv_loader, lr):
+    """One epoch of train_and_validate(flash_aam=True); returns (state, row):
+    steps, ms/step (median over WINDOW-step windows, the first one, which
+    holds the loader's start and cuDNN's first calls, left out) and the
+    logged train and cv losses."""
+    from pkr_tpu_torch.train import train_and_validate
+
+    rec, cv = _Records(), []
+    timed = _TimedLoader(loader)
+    step0 = int(state.step)
+    state = train_and_validate(model, state, timed, cv_loader, epochs=1, lr0=lr,
+                               flash_aam=True, logger=rec, print_freq=WINDOW,
+                               on_epoch_end=lambda s, e, mt: cv.append(mt))
+    torch.cuda.synchronize()
+    stamps = [timed.t0] + [t for t, m in rec.records if "step" in m]
+    windows = [1e3 * (b - a) / WINDOW for a, b in zip(stamps, stamps[1:])]
+    steps = int(state.step) - step0
+    losses = [m["loss"] for _, m in rec.records if "step" in m]
+    check(steps == loader.batches_per_epoch() and steps >= 3 * WINDOW,
+          f"the epoch took {steps} steps, the loader has {loader.batches_per_epoch()}")
+    check(len(cv) == 1 and np.isfinite(losses + [cv[0]["loss"]]).all(),
+          f"non-finite losses: train {losses}, cv {cv}")
+    ms = float(np.median(windows[1:]))
+    return state, {"steps": steps, "ms_per_step": ms, "window_ms": windows,
+                   "examples_per_s": TRAIN_B * 1e3 / ms, "train_losses": losses,
+                   "cv": cv[0]}
+
+
+def _crops_per_s(torch, loader):
+    """Crops/s of the loader alone over one epoch (no training)."""
+    t0 = time.perf_counter()
+    n = 0
+    for x, _ in loader.epoch(0):
+        n += x.shape[0]
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def _reader_us(src, n=200):
+    """Mean µs per call of the native ark reader over the first n
+    utterances of `src`: the header alone (open, seek, read: mat_dims), a
+    TRAIN_T-frame crop (read_crop_t: the same and the crop's decode), and
+    the same crop cut from the decoded matrix already in memory."""
+    from pkr_tpu_torch.io import native
+
+    specs = src._split[:n]
+    n = len(specs)
+    out = {}
+    t0 = time.perf_counter()
+    for path, off in specs:
+        native.mat_dims(path, off)
+    out["header"] = 1e6 * (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    for path, off in specs:
+        native.read_crop_t(path, off, 0, TRAIN_T, 40)
+    out["crop"] = 1e6 * (time.perf_counter() - t0) / n
+    mats = [native.read_mat(path, off) for path, off in specs]
+    t0 = time.perf_counter()
+    for m in mats:
+        np.ascontiguousarray(m[:TRAIN_T].T)
+    out["crop_in_memory"] = 1e6 * (time.perf_counter() - t0) / n
+    return out
+
+
+def numpy_dequantize(codes, pct):
+    """data/device_cache.dequantize's formula, evaluated by numpy in f32."""
+    c = codes.astype(np.float32)
+    p0, p25, p75, p100 = (pct[..., k:k + 1, :] for k in range(4))
+    low = p0 + (p25 - p0) * (c * np.float32(1.0 / 64.0))
+    mid = p25 + (p75 - p25) * ((c - np.float32(64.0)) * np.float32(1.0 / 128.0))
+    high = p75 + (p100 - p75) * ((c - np.float32(192.0)) * np.float32(1.0 / 63.0))
+    return np.where(c <= 64.0, low, np.where(c <= 192.0, mid, high))
+
+
+def check_cache_crops(torch, cache, source, ids):
+    """A device-cache batch at given draws against (a) a numpy decode of
+    the same rows of the cache's own codes, bit for bit, and (b) the host
+    reader's crops at the same starts, within the CM round-trip bound of
+    tests/test_device_cache.py (per column: its range / 50 + 1e-3; the
+    cache re-quantizes the decoded arks)."""
+    from pkr_tpu_torch.data import device_cache as dc
+
+    dev = cache.codes.device
+    u = torch.rand((len(ids),), generator=torch.Generator(device=dev).manual_seed(9),
+                   device=dev)
+    feats, _ = cache.sample_batch(ids, u, TRAIN_T)
+    idx = dc._crop_index(cache.offsets, cache.rows, torch.as_tensor(ids, device=dev), u,
+                         TRAIN_T).cpu().numpy()
+    want = numpy_dequantize(cache.codes.cpu().numpy()[idx], cache.pct.cpu().numpy()[ids])
+    got = feats.cpu().numpy()
+    check(np.array_equal(got, want.transpose(0, 2, 1)),
+          "a device-cache batch differs from the numpy decode of its own rows")
+    offsets = cache.offsets.cpu().numpy()
+    worst, excess = 0.0, -np.inf
+    for b, i in enumerate(ids):
+        host = source.read_crop_t(int(i), int(idx[b, 0] - offsets[i]), TRAIN_T)
+        full = source.read(int(i))
+        bound = (full.max(axis=0) - full.min(axis=0)) / 50 + 1e-3
+        err = np.abs(got[b] - host).max(axis=1)
+        worst = max(worst, float(err.max()))
+        excess = max(excess, float((err - bound).max()))
+    check(excess <= 0.0, f"device-cache crops off the host reader's by more than the CM "
+                         f"bound (worst {worst})")
+    return {"bit_equal_numpy_decode": True, "max_abs_err_vs_host_reader": worst,
+            "short_crops": int(sum(cache.rows.cpu().numpy()[ids] < TRAIN_T))}
+
+
+def phase_corpus(torch, smi_line):
+    import tempfile
+
+    from pkr_tpu_torch.data import (BalancedRepetitionSampler, DeviceCacheLoader,
+                                    DeviceFeatureCache, EvalLoader, FeatureSource, TrainLoader)
+    from pkr_tpu_torch.eval import compute_eer, cosine_scores, extract_embeddings
+    from pkr_tpu_torch.io import DataDir
+    from pkr_tpu_torch.models import SpeakerModel
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.train import create_train_state
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(prefix="pkr_corpus_") as root:
+        t0 = time.perf_counter()
+        data, frames = write_corpus(root)
+        write_s = time.perf_counter() - t0
+        train_dir = DataDir.load(os.path.join(root, "train"))
+        cv_dir = DataDir.load(os.path.join(root, "cv"))
+        utt2spkid = {u: int(v) for u, v in data["utt2spkid"].items()}
+        src = FeatureSource(os.path.join(root, "train", "feats.scp"))
+        check(src._native is not None, "the native ark reader did not build or load")
+        labels = [utt2spkid[u] for u in src.utts]
+        cv_src = FeatureSource(os.path.join(root, "cv", "feats.scp"))
+        cv_labels = [utt2spkid[u] for u in cv_src.utts]
+        host_loader = TrainLoader(src, labels, BalancedRepetitionSampler(src.utts, labels),
+                                  TRAIN_B, chunk=TRAIN_T, seed=0)
+        cv_loader = TrainLoader(cv_src, cv_labels,
+                                BalancedRepetitionSampler(cv_src.utts, cv_labels), TRAIN_B,
+                                chunk=TRAIN_T, seed=0)
+        ex_utts = [f"spk{s:04d}-u{j}" for s in range(EXTRACT_SPK)
+                   for j in range(CORPUS_UTTS_PER_SPK)]
+        DataDir({"feats.scp": {u: data["feats.scp"][u] for u in ex_utts}}).save(
+            os.path.join(root, "extract"))
+        ex_src = FeatureSource(os.path.join(root, "extract", "feats.scp"))
+        torch.manual_seed(5)
+        model = SpeakerModel(SPK, 40, "mean+std", "AAM", trunk="resnet34",
+                             dtype=torch.bfloat16, device=dev)
+        lr = 0.05
+
+        # --- the main path, with every kernel count at 0 just before it ---
+        fa.flash_aam_fwd.launches = 0
+        fa.flash_aam_bwd.launches = 0
+        t0 = time.perf_counter()
+        state = create_train_state(model)
+        state, host_row = _train_epoch(torch, model, state, host_loader, cv_loader, lr)
+        t1 = time.perf_counter()
+        cache = DeviceFeatureCache.from_scp(os.path.join(root, "train", "feats.scp"),
+                                            utt2spkid)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        cache_loader = DeviceCacheLoader(cache, BalancedRepetitionSampler(
+            cache.utts, [utt2spkid[u] for u in cache.utts]), TRAIN_B, chunk=TRAIN_T, seed=0)
+        state, cache_row = _train_epoch(torch, model, state, cache_loader, cv_loader, lr)
+        t2 = time.perf_counter()
+        ex_batches = list(EvalLoader(ex_src, batch_size=64, transport="auto"))
+        emb = extract_embeddings(model, ex_batches)
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t2
+        path_s = time.perf_counter() - t0
+        launches = {"flash_aam_fwd": fa.flash_aam_fwd.launches,
+                    "flash_aam_bwd": fa.flash_aam_bwd.launches}
+        # --- end of the main path ---
+
+        check(launches["flash_aam_fwd"] > 0 and launches["flash_aam_bwd"] > 0,
+              f"the corpus path launched {launches}")
+        check(src.utts == cache.utts, "the cache's utterance order is not the scp's")
+        rng = np.random.default_rng(1)
+        crops = check_cache_crops(torch, cache, src,
+                                  rng.choice(len(src.utts), TRAIN_B, replace=False))
+
+        # extraction: the quantized transport against the f32 one, f32 model
+        check(all(isinstance(p, tuple) for _, p, _ in ex_batches),
+              "the quantized transport was not taken")
+        f32_batches = list(EvalLoader(ex_src, batch_size=64, transport="f32"))
+        code_bytes = sum(p[0].nbytes for _, p, _ in ex_batches)
+        table_bytes = sum(p[1].nbytes for _, p, _ in ex_batches)
+        f32_bytes = sum(p.nbytes for _, p, _ in f32_batches)
+        check(4 * code_bytes == f32_bytes, f"codes {code_bytes} B vs f32 {f32_bytes} B")
+        m32 = SpeakerModel(SPK, 40, "mean+std", "AAM", trunk="resnet34",
+                           dtype=torch.float32, device=dev)
+        m32.load_state_dict(model.state_dict())
+        e_q = extract_embeddings(m32, ex_batches)
+        e_f = extract_embeddings(m32, f32_batches)
+        check(sorted(e_q) == sorted(e_f) == sorted(ex_utts), "extracted keys")
+        q_rel = max(float(np.abs(e_q[k] - e_f[k]).max() / np.abs(e_f[k]).max()) for k in e_f)
+        check(q_rel <= 1e-4, f"quantized vs f32 extraction: relative error {q_rel}")
+
+        # trials drawn from the corpus: each speaker's two utterances, and
+        # as many pairs of different speakers
+        E = np.stack([emb[u] for u in ex_utts])
+        check(E.shape == (len(ex_utts), 256) and np.isfinite(E).all(), "embeddings")
+        enroll = {u: emb[u] for u in ex_utts[0::2]}
+        test = {u: emb[u] for u in ex_utts[1::2]}
+        targets = [(f"spk{s:04d}-u0", f"spk{s:04d}-u1") for s in range(EXTRACT_SPK)]
+        other = rng.permutation(EXTRACT_SPK)
+        nontargets = [(f"spk{s:04d}-u0", f"spk{o:04d}-u1") for s, o in enumerate(other)
+                      if o != s]
+        trials = targets + nontargets
+        scores = cosine_scores(enroll, test, trials, E.mean(axis=0))
+        eer = compute_eer(scores, [1] * len(targets) + [0] * len(nontargets))
+        check(np.isfinite(scores).all() and 0.0 <= eer <= 1.0, f"EER {eer}")
+
+        host_rate = _crops_per_s(torch, host_loader)
+        reader_us = _reader_us(src)
+        cache_rate = _crops_per_s(torch, cache_loader)
+        batch_bytes = TRAIN_B * 40 * TRAIN_T * 4 + TRAIN_B * 8
+        emit({"phase": "corpus", "speakers": SPK, "utterances": len(data["utt2spk"]),
+              "train_utterances": len(train_dir.utts), "cv_utterances": len(cv_dir.utts),
+              "frames": frames, "ark_bytes": os.path.getsize(os.path.join(root, "feats.ark")),
+              "write_seconds": write_s, "native_reader": True, "launches": launches,
+              "path_seconds": path_s,
+              "host_loader": {"crops_per_s": host_rate, "reader_us": reader_us, **host_row,
+                              "bytes_to_card_per_batch": batch_bytes,
+                              "bytes_to_card_epoch": batch_bytes * host_row["steps"]},
+              "device_cache": {"crops_per_s": cache_rate, **cache_row,
+                               "build_seconds": build_s, "cache_bytes": cache.nbytes,
+                               "bytes_to_card_setup": cache.nbytes,
+                               "bytes_to_card_per_batch": TRAIN_B * 8,
+                               "crop_check": crops},
+              "extraction": {"utterances": len(ex_utts), "seconds": extract_s,
+                             "utterances_per_s": len(ex_utts) / extract_s,
+                             "code_bytes": code_bytes, "table_bytes": table_bytes,
+                             "f32_feature_bytes": f32_bytes,
+                             "quantized_vs_f32_rel": q_rel, "eer": eer,
+                             "n_trials": len(trials)},
+              "card": smi_line})
     return launches
 
 
@@ -846,9 +1213,10 @@ def main():
     try:
         smi_line = phase_env(torch)
         phase_build()
-        rows, bwd_rows = phase_kernel(torch)
+        rows, bwd_rows = phase_kernel(torch, smi_line)
         launches = phase_slice(torch, smi_line)
         train_launches = phase_train(torch, smi_line)
+        corpus_launches = phase_corpus(torch, smi_line)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -858,11 +1226,13 @@ def main():
         _kernel_entry("flash_aam_fwd", "pkr_tpu_torch/csrc/flash_aam_fwd.cu",
                       "pkr_tpu/ops/flash_aam.py:53",
                       {"slice": launches["flash_aam_fwd"],
-                       "train": train_launches["flash_aam_fwd"]},
+                       "train": train_launches["flash_aam_fwd"],
+                       "corpus": corpus_launches["flash_aam_fwd"]},
                       rows, rows[0], ("max_abs_err_lse", "max_abs_err_zy")),
         _kernel_entry("flash_aam_bwd", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
                       "pkr_tpu/ops/flash_aam.py:197",
-                      {"train": train_launches["flash_aam_bwd"]},
+                      {"train": train_launches["flash_aam_bwd"],
+                       "corpus": corpus_launches["flash_aam_bwd"]},
                       bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"))]
     emit({"kernels": kernels})
     print(smi_line, flush=True)

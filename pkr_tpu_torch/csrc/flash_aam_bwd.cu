@@ -67,9 +67,12 @@
 // saturated cosine is exact: 1.0 and 2.0 split into TF32 with no
 // remainder, and 1/||w|| = 0.5.
 //
-// D is at most 256, padded to padded_depth(D) in shared memory with zeros.
-// Rows of e and W whose length is a multiple of 4 are staged with 16-byte
-// cp.async copies; other D take 4-byte copies (VEC = 1).
+// Depth.  For D <= DMAX (256) the rows are padded to padded_depth(D) in
+// shared memory with zeros.  Deeper rows take bwd_chunks_kernel: the same
+// blocks, the cosine tiles streamed in 128-deep chunks by the forward's own
+// chunked_cosine, and the second products cut by output depth (see
+// dw_chunks_block).  Rows of e and W whose length is a multiple of 4 are
+// staged with 16-byte cp.async copies; other D take 4-byte copies (VEC = 1).
 
 #include "flash_aam_cosine.cuh"
 
@@ -328,6 +331,172 @@ __device__ __forceinline__ void de_block(float* smem, int row_tile, int split,
     }
 }
 
+// D > DMAX.  The cosine tiles stream the depth through chunked_cosine (the
+// forward's chunks, so the cosines keep the forward's bits), and the second
+// products run over output depth chunks of OC = 32 * WARPS, warp w taking
+// the depths [32 w, 32 w + 32) of each: the block loops over the output
+// chunks and recomputes the cosine tiles for each, so its registers stay
+// as they are for D <= DMAX and it issues about (n_oc + 1) / 2 times the
+// cosine work of one pass.  xo holds the output chunk's other operand.
+constexpr int OC = 32 * WARPS;
+
+// The dW pass for D > DMAX, one block per TC-class tile.  For each output
+// chunk, dw_hat's columns of it are written to dw unprojected and their
+// share of proj = dw_hat . w_hat is added to projs in chunk order; a last
+// sweep then applies dW = (dw_hat - proj w_hat) / ||w|| in place.
+template <int VEC>
+__device__ __forceinline__ void dw_chunks_block(float* smem, int tile,
+                                                const float* __restrict__ e,
+                                                const float* __restrict__ w,
+                                                const int* __restrict__ labels,
+                                                const float* __restrict__ lse,
+                                                const float* __restrict__ g, int B, int C, int D,
+                                                const Margin& mg, float* __restrict__ dw) {
+  float* const eb[2] = {smem, smem + TB * KC};                    // [2][TB][KC]
+  float* const wb[2] = {smem + 2 * TB * KC, smem + 2 * TB * KC + TC * KC};  // [2][TC][KC]
+  float* xo = wb[1] + TC * KC;         // [TB][OC]: e's output chunk, then W's
+  float* at_big = xo + TB * OC;        // [TB][TC]
+  float* at_small = at_big + TB * TC;  // [TB][TC]
+  float* rinv = at_small + TB * TC;    // [TC]
+  float* projp = rinv + TC;            // [WARPS][TC]
+  float* projs = projp + WARPS * TC;   // [TC], proj summed over the output chunks
+  float* xch = projs + TC;             // [WARPS][4][32]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int col0 = tile * TC;
+  const int n_bt = (B + TB - 1) / TB;
+  const int n_oc = (D + OC - 1) / OC;
+
+  for (int oc = 0; oc < n_oc; ++oc) {
+    const int d0 = oc * OC;
+    float acc[2][4][4] = {};
+    for (int bt = 0; bt < n_bt; ++bt) {
+      const Rows rd = row_data(labels, lse, g, B, bt * TB);
+      float dot[4];
+      if (oc == 0 && bt == 0) {
+        chunked_cosine<VEC, true>(dot, e, B, 0, w, C, col0, D, eb, wb, rinv, xch);
+        __syncthreads();  // rinv
+      } else {
+        chunked_cosine<VEC, false>(dot, e, B, bt * TB, w, C, col0, D, eb, wb, rinv, xch);
+      }
+      a_tile<false>(dot, rinv, rd, C, col0, mg, at_big, at_small);
+      tf32x3::stage_rows<VEC>(xo, OC, e + d0, D, bt * TB, TB, B, D - d0);
+      tf32x3::commit();
+      tf32x3::wait_pending<0>();
+      __syncthreads();
+      tf32x3::warp_mma_k32<K_ROWS>(acc, at_big, at_small, xo, OC, 32 * warp);
+    }
+
+    // acc[i][j][q] holds class 16 i + lane / 4 + 8 (q / 2) at depth
+    // d0 + 32 warp + 8 j + 2 (lane % 4) + q % 2
+    __syncthreads();  // every warp is done with e's chunk
+    tf32x3::stage_rows<VEC>(xo, OC, w + d0, D, col0, TC, C, D - d0);
+    tf32x3::commit();
+    tf32x3::wait_pending<0>();
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int cls = 16 * i + (lane >> 2) + 8 * h;
+        const int c = col0 + cls;
+        float proj = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int dl = 32 * warp + 8 * j + 2 * (lane & 3) + q;
+            const float v = __fmul_rn(xo[at(cls, dl, OC)], rinv[cls]);
+            const float a = acc[i][j][2 * h + q];
+            proj = fmaf(a, v, proj);
+            if (c < C && d0 + dl < D) dw[(size_t)c * D + d0 + dl] = a;
+          }
+        proj += __shfl_xor_sync(FULL, proj, 1);
+        proj += __shfl_xor_sync(FULL, proj, 2);
+        if ((lane & 3) == 0) projp[warp * TC + cls] = proj;
+      }
+    __syncthreads();
+    if (threadIdx.x < TC) {
+      float proj = 0.0f;
+      for (int k = 0; k < WARPS; ++k) proj += projp[k * TC + threadIdx.x];
+      projs[threadIdx.x] = oc ? __fadd_rn(projs[threadIdx.x], proj) : proj;
+    }
+  }
+
+  // dW = (dw_hat - proj w_hat) / ||w|| over the tile's rows, in place (the
+  // barrier also makes the block's own dw_hat writes visible to it)
+  __syncthreads();
+  const int rows = min(TC, C - col0);
+  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
+    const int cls = i / D;
+    const size_t at_dw = (size_t)col0 * D + i;
+    const float ri = rinv[cls];
+    const float what = __fmul_rn(w[at_dw], ri);
+    dw[at_dw] = __fmul_rn(__fsub_rn(dw[at_dw], __fmul_rn(projs[cls], what)), ri);
+  }
+}
+
+// The de pass for D > DMAX, one block per (batch tile, class split):
+// part[split] = a[rows, split] w_hat, output chunk by output chunk.
+template <int VEC>
+__device__ __forceinline__ void de_chunks_block(float* smem, int row_tile, int split,
+                                                const float* __restrict__ e,
+                                                const float* __restrict__ w,
+                                                const int* __restrict__ labels,
+                                                const float* __restrict__ lse,
+                                                const float* __restrict__ g, int B, int C, int D,
+                                                int tiles_per_split, const Margin& mg,
+                                                float* __restrict__ part) {
+  float* const eb[2] = {smem, smem + TB * KC};                    // [2][TB][KC]
+  float* const wb[2] = {smem + 2 * TB * KC, smem + 2 * TB * KC + TC * KC};  // [2][TC][KC]
+  float* xo = wb[1] + TC * KC;         // [TC][OC]: W's output chunk
+  float* at_big = xo + TC * OC;        // [TB][TC]
+  float* at_small = at_big + TB * TC;  // [TB][TC]
+  float* rinv = at_small + TB * TC;    // [TC]
+  float* xch = rinv + TC;              // [WARPS][4][32]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = row_tile * TB;
+  const int n_tiles = (C + TC - 1) / TC;
+  const int tile_lo = split * tiles_per_split;
+  const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
+  const int n_oc = (D + OC - 1) / OC;
+  const Rows rd = row_data(labels, lse, g, B, row0);
+  float* out = part + (size_t)split * B * D;
+
+  for (int oc = 0; oc < n_oc; ++oc) {
+    const int d0 = oc * OC;
+    float acc[2][4][4] = {};
+    for (int t = tile_lo; t < tile_hi; ++t) {
+      float dot[4];
+      chunked_cosine<VEC, true>(dot, e, B, row0, w, C, t * TC, D, eb, wb, rinv, xch);
+      __syncthreads();  // rinv
+      a_tile<true>(dot, rinv, rd, C, t * TC, mg, at_big, at_small);
+      tf32x3::stage_rows<VEC>(xo, OC, w + d0, D, t * TC, TC, C, D - d0);
+      tf32x3::commit();
+      tf32x3::wait_pending<0>();
+      __syncthreads();
+      tf32x3::warp_mma_k32<MK_ROWS>(acc, at_big, at_small, xo, OC, 32 * warp);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * i + (lane >> 2) + 8 * h;
+        if (r >= B) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int d = d0 + 32 * warp + 8 * j + 2 * (lane & 3) + q;
+            if (d < D) out[(size_t)r * D + d] = acc[i][j][2 * h + q];
+          }
+      }
+  }
+}
+
 // Both passes in one launch: blocks [0, n_dw) run the dW pass on class tile
 // blockIdx.x, the rest the de pass on (batch tile, split), batch tile
 // fastest.  The passes share no data, so the de blocks take the SMs that
@@ -351,6 +520,25 @@ bwd_tiles_kernel(const float* __restrict__ e, const float* __restrict__ w,
   }
 }
 
+// The same two passes for D > DMAX, on the same blocks.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+bwd_chunks_kernel(const float* __restrict__ e, const float* __restrict__ w,
+                  const int* __restrict__ labels, const float* __restrict__ lse,
+                  const float* __restrict__ g, int B, int C, int D, int tiles_per_split,
+                  Margin mg, float* __restrict__ part, float* __restrict__ dw) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_dw = (C + TC - 1) / TC;
+  if ((int)blockIdx.x < n_dw) {
+    dw_chunks_block<VEC>(smem, blockIdx.x, e, w, labels, lse, g, B, C, D, mg, dw);
+  } else {
+    const int i = blockIdx.x - n_dw;
+    const int n_rt = (B + TB - 1) / TB;
+    de_chunks_block<VEC>(smem, i % n_rt, i / n_rt, e, w, labels, lse, g, B, C, D,
+                         tiles_per_split, mg, part);
+  }
+}
+
 // de = sum of the splits' partials, in split order.
 __global__ void bwd_de_sum_kernel(const float* __restrict__ part, int n_splits,
                                   int n, float* __restrict__ de) {
@@ -365,17 +553,29 @@ template <int VEC>
 cudaError_t launch(const float* e, const float* w, const int* labels, const float* lse,
                    const float* g, int B, int C, int D, int tiles_per_split, int n_splits,
                    const Margin& mg, float* part, float* de, float* dw, cudaStream_t st) {
-  const int DP = padded_depth(D);
-  // the dW pass's layout (the de pass's is smaller: no projection scratch)
-  const size_t smem =
-      sizeof(float) * (3 * TB * DP + 2 * TB * TC + TC + WARPS * TC + WARPS * 128);
   static_assert(TB == TC, "both passes stage three 32-row tiles");
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_tiles_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const int blocks = (C + TC - 1) / TC + (B + TB - 1) / TB * n_splits;
-  bwd_tiles_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D, DP,
-                                                        tiles_per_split, mg, part, dw);
+  cudaError_t err;
+  if (D <= DMAX) {
+    const int DP = padded_depth(D);
+    // the dW pass's layout (the de pass's is smaller: no projection scratch)
+    const size_t smem =
+        sizeof(float) * (3 * TB * DP + 2 * TB * TC + TC + WARPS * TC + WARPS * 128);
+    err = cudaFuncSetAttribute(bwd_tiles_kernel<VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    bwd_tiles_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D, DP,
+                                                          tiles_per_split, mg, part, dw);
+  } else {
+    // the dW pass's layout again (the de pass's has no projection scratch)
+    const size_t smem = sizeof(float) * (2 * (TB + TC) * KC + TB * OC + 2 * TB * TC + TC +
+                                         WARPS * TC + TC + WARPS * 128);
+    err = cudaFuncSetAttribute(bwd_chunks_kernel<VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    bwd_chunks_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D,
+                                                           tiles_per_split, mg, part, dw);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = B * D;
@@ -389,7 +589,6 @@ extern "C" {
 
 int flash_aam_bwd_block_rows() { return TB; }
 int flash_aam_bwd_block_classes() { return TC; }
-int flash_aam_bwd_max_dim() { return DMAX; }
 
 // e (B, D) f32, w (C, D) f32, labels (B,) i32, lse (B,) f32, g (B,) f32, all
 // contiguous on the card; part is scratch of n_splits * B * D floats with
@@ -401,7 +600,7 @@ int flash_aam_bwd(const void* e, const void* w, const void* labels, const void* 
                   int n_splits, float s, float cos_m, float sin_m, float th, float mm,
                   void* part, void* de, void* dw, void* stream) {
   const int n_tiles = (C + TC - 1) / TC;
-  if (B <= 0 || C <= 0 || D <= 0 || D > DMAX || tiles_per_split <= 0 ||
+  if (B <= 0 || C <= 0 || D <= 0 || tiles_per_split <= 0 ||
       n_splits != (n_tiles + tiles_per_split - 1) / tiles_per_split)
     return (int)cudaErrorInvalidValue;
   const Margin mg{s, cos_m, sin_m, th, mm};

@@ -10,6 +10,13 @@
 // with the depth padded by zeros to padded_depth(D).  Both kernels tile the
 // batch and the classes by TB and TC from offsets that are multiples of
 // them, so (b, c) always lands on the same warp, lane and register.
+//
+// Deeper rows (D > DMAX) do not fit the resident tiles.  chunked_cosine then
+// streams the depth in n_chunks(D) chunks of KC, the last one padded with
+// zeros, and both kernels call it on the same tiles:
+//   e . w   = the chunks' cosine_dots, added with __fadd_rn in chunk order,
+//   1/||w|| = __frsqrt_rn(max(sum w^2, 1e-24)), sum w^2 the chunks' tile_sq
+//             added in the same order.
 #pragma once
 
 #include "flash_aam_common.cuh"
@@ -19,7 +26,8 @@ namespace flash_aam {
 
 constexpr int TB = 32;          // batch rows per tile
 constexpr int TC = 32;          // classes per tile
-constexpr int DMAX = 256;       // largest depth
+constexpr int DMAX = 256;       // largest depth of the resident tiles
+constexpr int KC = 128;         // depth chunk of chunked_cosine (D > DMAX)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
@@ -33,22 +41,31 @@ __host__ __device__ inline int padded_depth(int D) {
   return DP;
 }
 
-// rinv[c] = 1 / ||W row c|| of a staged TC-row tile, ||w|| =
-// sqrt(max(sum w^2, 1e-24)): 8 threads a row sum every 8th square in f32, a
-// fixed butterfly adds them, and the reciprocal square root is rounded once
-// (__frsqrt_rn).  Other threads see it after the next __syncthreads.
-__device__ __forceinline__ void tile_rnorms(const float* ws, int ld, float* rinv) {
+__host__ __device__ inline int n_chunks(int D) { return (D + KC - 1) / KC; }
+
+// The sum of squares of row threadIdx.x / 8 of a staged TC-row tile, in the
+// 8 threads of that row: each sums every 8th square in f32, then a fixed
+// butterfly adds them.
+__device__ __forceinline__ float tile_sq(const float* ws, int ld) {
   const int r = threadIdx.x >> 3;
-  const int part = threadIdx.x & 7;
   float sq = 0.0f;
-  for (int c = part; c < ld; c += 8) {
+  for (int c = threadIdx.x & 7; c < ld; c += 8) {
     const float v = ws[tf32x3::at(r, c, ld)];
     sq = fmaf(v, v, sq);
   }
   sq += __shfl_xor_sync(FULL, sq, 4);
   sq += __shfl_xor_sync(FULL, sq, 2);
   sq += __shfl_xor_sync(FULL, sq, 1);
-  if (part == 0) rinv[r] = __frsqrt_rn(fmaxf(sq, 1e-24f));
+  return sq;
+}
+
+// rinv[c] = 1 / ||W row c|| of a staged TC-row tile, ||w|| =
+// sqrt(max(sum w^2, 1e-24)) with sum w^2 from tile_sq, the reciprocal square
+// root rounded once (__frsqrt_rn).  Other threads see it after the next
+// __syncthreads.
+__device__ __forceinline__ void tile_rnorms(const float* ws, int ld, float* rinv) {
+  const float sq = tile_sq(ws, ld);
+  if ((threadIdx.x & 7) == 0) rinv[threadIdx.x >> 3] = __frsqrt_rn(fmaxf(sq, 1e-24f));
 }
 
 // The 16x8 tile of the 32x32 tile e . w^T that this warp finishes: rows
@@ -93,6 +110,45 @@ __device__ __forceinline__ void cosine_dots(float (&dot)[4], const float* es, co
 #pragma unroll
   for (int q = 0; q < 4; ++q)
     dot[q] = __fadd_rn(dot[q], xch[((warp ^ 4) * 4 + q) * 32 + lane]);
+}
+
+// The cosine tile for D > DMAX: dot (as cosine_dots lays it out) of the e
+// rows [row0, row0 + TB) against the W rows [col0, col0 + TC), chunk by
+// chunk.  Chunk k (depths [k KC, k KC + KC), zeros past D) of both tiles is
+// staged into eb[k % 2] and wb[k % 2], chunk k + 1's copy in flight while
+// chunk k's products run.  With NORMS, rinv[c] = 1 / ||W row c|| too (see
+// the top of this file), seen by other threads after the next __syncthreads.
+// Every thread of the block calls it.  It starts by staging into eb[0] and
+// wb[0], so the caller syncs between its last reads of eb, wb and xch and
+// the next call, and between its reads of rinv and the next call with NORMS.
+template <int VEC, bool NORMS>
+__device__ __forceinline__ void chunked_cosine(float (&dot)[4], const float* __restrict__ e,
+                                               int B, int row0, const float* __restrict__ w,
+                                               int C, int col0, int D, float* const (&eb)[2],
+                                               float* const (&wb)[2], float* rinv, float* xch) {
+  const int n_ch = n_chunks(D);
+  auto stage = [&](int k) {
+    const int d0 = k * KC;
+    tf32x3::stage_rows<VEC>(eb[k & 1], KC, e + d0, D, row0, TB, B, D - d0);
+    tf32x3::stage_rows<VEC>(wb[k & 1], KC, w + d0, D, col0, TC, C, D - d0);
+    tf32x3::commit();
+  };
+  stage(0);
+  float sq = 0.0f;
+  for (int k = 0; k < n_ch; ++k) {
+    tf32x3::wait_pending<0>();
+    __syncthreads();  // chunk k has landed, and every warp is done with chunk k - 1
+    if (k + 1 < n_ch) stage(k + 1);
+    float part[4];
+    cosine_dots(part, eb[k & 1], wb[k & 1], KC, xch);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dot[q] = k ? __fadd_rn(dot[q], part[q]) : part[q];
+    if (NORMS) {
+      const float s = tile_sq(wb[k & 1], KC);
+      sq = k ? __fadd_rn(sq, s) : s;
+    }
+  }
+  if (NORMS && (threadIdx.x & 7) == 0) rinv[threadIdx.x >> 3] = __frsqrt_rn(fmaxf(sq, 1e-24f));
 }
 
 }  // namespace flash_aam

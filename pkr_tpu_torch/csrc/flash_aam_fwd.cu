@@ -45,10 +45,14 @@
 // merge_kernel then merges the splits in a fixed order, without atomics, so
 // two calls give the same bits.
 //
-// D is at most 256 (the backward's limit), padded to padded_depth(D) in
-// shared memory with zeros.  Rows of e and W whose length is a multiple of 4
-// are staged with 16-byte cp.async copies; other D take 4-byte copies
-// (VEC = 1).
+// Depth.  For D <= DMAX (256), the rows are padded to padded_depth(D) in
+// shared memory with zeros and the e tile stays resident.  Deeper rows take
+// fwd_chunks_kernel: the same blocks and epilogue, with each class tile's
+// cosines and norms streamed in 128-deep chunks of e and W through
+// chunked_cosine (flash_aam_cosine.cuh), which the backward calls on the same
+// tiles, so the bits still agree.  Rows of e and W whose length is a
+// multiple of 4 are staged with 16-byte cp.async copies; other D take 4-byte
+// copies (VEC = 1).
 
 #include "flash_aam_cosine.cuh"
 
@@ -74,7 +78,91 @@ __device__ __forceinline__ RowState shfl_xor(const RowState& a, int mask) {
           __shfl_xor_sync(FULL, a.zy, mask), __shfl_xor_sync(FULL, a.cnt, mask)};
 }
 
-// One block per (batch tile blockIdx.x, class split blockIdx.y).
+// The labels, target logits and online states of the two batch rows whose
+// logits this thread forms: rows row0 + 16 * (w % 4 / 2) + lane / 4 + 8 h
+// of the tile, as cosine_dots lays out dot (label -1 past B).
+struct Rows {
+  int lab[2];
+  float ztr[2];
+  RowState st[2];
+};
+
+__device__ __forceinline__ Rows row_data(const int* __restrict__ labels,
+                                         const float* __restrict__ zt, int B, int row0) {
+  Rows rd;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 16 * ((threadIdx.x >> 5 & 3) >> 1) + ((threadIdx.x & 31) >> 2) + 8 * h;
+    const bool ok = r < B;
+    rd.lab[h] = ok ? labels[r] : -1;
+    rd.ztr[h] = ok ? zt[r] : 0.0f;
+    rd.st[h] = {NEG_INF, 0.0f, 0.0f, 0.0f};
+  }
+  return rd;
+}
+
+// Fold this thread's 2 rows x 2 classes of a class tile into its online
+// states: c0 is the tile's first class plus this thread's first column,
+// ri the 1 / ||w|| of its two classes.
+__device__ __forceinline__ void fold_tile(Rows& rd, const float (&dot)[4], const float (&ri)[2],
+                                          int c0, int C, const Margin& mg) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = c0 + q;
+      if (c >= C) continue;
+      RowState& st = rd.st[h];
+      const bool is_tgt = c == rd.lab[h];
+      const float z = margined(__fmul_rn(dot[2 * h + q], ri[q]), is_tgt, mg);
+      if (is_tgt) st.zy += z;
+      else if (z > rd.ztr[h]) st.cnt += 1.0f;
+      if (z > st.m) {
+        st.s = st.s * expf(st.m - z) + 1.0f;
+        st.m = z;
+      } else {
+        st.s += expf(z - st.m);
+      }
+    }
+}
+
+// Merge the 16 states of each row of the block's tile, the 4 lanes of a
+// warp that share it (shuffles) and then the 4 warps (through xch, in warp
+// order), and write one partial state per (split, row).
+__device__ __forceinline__ void write_states(Rows& rd, float* xch, int row0, int B, int split,
+                                             float* __restrict__ part) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  __syncthreads();  // every warp is done with xch
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    merge(rd.st[h], shfl_xor(rd.st[h], 1));
+    merge(rd.st[h], shfl_xor(rd.st[h], 2));
+    if ((lane & 3) == 0) {
+      float* o = xch + (warp * 16 + (lane >> 2) + 8 * h) * 4;
+      o[0] = rd.st[h].m, o[1] = rd.st[h].s, o[2] = rd.st[h].zy, o[3] = rd.st[h].cnt;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x >= TB) return;
+  const int r = threadIdx.x;
+  const int grp = r >> 4;  // rows [16 grp, 16 grp + 16) are warps 2 grp, 2 grp + 1, + 4, + 5's
+  RowState acc = {NEG_INF, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float* o = xch + ((2 * grp + (k & 1) + 4 * (k >> 1)) * 16 + (r & 15)) * 4;
+    merge(acc, {o[0], o[1], o[2], o[3]});
+  }
+  if (row0 + r >= B) return;
+  const size_t plane = (size_t)gridDim.y * B;
+  const size_t at = (size_t)split * B + row0 + r;
+  part[at] = acc.m;
+  part[plane + at] = acc.s;
+  part[2 * plane + at] = acc.zy;
+  part[3 * plane + at] = acc.cnt;
+}
+
+// D <= DMAX: one block per (batch tile blockIdx.x, class split blockIdx.y).
 template <int VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 fwd_tiles_kernel(const float* __restrict__ e, const float* __restrict__ w,
@@ -100,21 +188,10 @@ fwd_tiles_kernel(const float* __restrict__ e, const float* __restrict__ w,
   tf32x3::stage_rows<VEC>(ws0, DP, w, D, tile_lo * TC, TC, C, D);
   tf32x3::commit();
 
-  // this thread's rows of the tile, 16 * (w % 4 / 2) + lane / 4 + 8 h (as
-  // cosine_dots lays out dot), and its classes cls0, cls0 + 1 of each tile
-  const int rloc = 16 * ((warp & 3) >> 1) + (lane >> 2);
+  // this thread's classes cls0, cls0 + 1 of each tile (as cosine_dots lays
+  // out dot)
   const int cls0 = 8 * cosine_ntile(warp) + 2 * (lane & 3);
-  int lab[2];
-  float ztr[2];
-  RowState st[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + rloc + 8 * h;
-    const bool ok = r < B;
-    lab[h] = ok ? labels[r] : -1;
-    ztr[h] = ok ? zt[r] : 0.0f;
-    st[h] = {NEG_INF, 0.0f, 0.0f, 0.0f};
-  }
+  Rows rd = row_data(labels, zt, B, row0);
   tf32x3::wait_pending<0>();
   __syncthreads();
   tile_rnorms(ws0, DP, rinv0);
@@ -136,55 +213,43 @@ fwd_tiles_kernel(const float* __restrict__ e, const float* __restrict__ w,
     tf32x3::wait_pending<0>();
     __syncthreads();
     if (t + 1 < tile_hi) tile_rnorms(odd ? ws0 : ws1, DP, odd ? rinv0 : rinv1);
+    fold_tile(rd, dot, ri, t * TC + cls0, C, mg);
+  }
+  write_states(rd, xch, row0, B, split, part);
+}
 
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int c = t * TC + cls0 + q;
-        if (c >= C) continue;
-        const bool is_tgt = c == lab[h];
-        const float z = margined(__fmul_rn(dot[2 * h + q], ri[q]), is_tgt, mg);
-        if (is_tgt) st[h].zy += z;
-        else if (z > ztr[h]) st[h].cnt += 1.0f;
-        if (z > st[h].m) {
-          st[h].s = st[h].s * expf(st[h].m - z) + 1.0f;
-          st[h].m = z;
-        } else {
-          st[h].s += expf(z - st[h].m);
-        }
-      }
-  }
+// D > DMAX: the same blocks, each class tile's cosines and norms streamed
+// chunk by chunk through chunked_cosine (e's chunks too: a whole row of
+// any depth does not fit), the rest as fwd_tiles_kernel.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+fwd_chunks_kernel(const float* __restrict__ e, const float* __restrict__ w,
+                  const int* __restrict__ labels, const float* __restrict__ zt, int B, int C,
+                  int D, int tiles_per_split, Margin mg, float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  float* const eb[2] = {smem, smem + TB * KC};                    // [2][TB][KC]
+  float* const wb[2] = {smem + 2 * TB * KC, smem + 2 * TB * KC + TC * KC};  // [2][TC][KC]
+  float* rinv = wb[1] + TC * KC;                                  // [TC]
+  float* xch = rinv + TC;                                         // [WARPS][4][32]
 
-  // merge the 16 states of each row: the 4 lanes of a warp that share it
-  // (shuffles), then the 4 warps (through shared memory, in warp order)
-  __syncthreads();  // every warp is done with xch
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    merge(st[h], shfl_xor(st[h], 1));
-    merge(st[h], shfl_xor(st[h], 2));
-    if ((lane & 3) == 0) {
-      float* o = xch + (warp * 16 + (lane >> 2) + 8 * h) * 4;
-      o[0] = st[h].m, o[1] = st[h].s, o[2] = st[h].zy, o[3] = st[h].cnt;
-    }
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * TB;
+  const int split = blockIdx.y;
+  const int n_tiles = (C + TC - 1) / TC;
+  const int tile_lo = split * tiles_per_split;
+  const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
+  const int cls0 = 8 * cosine_ntile(warp) + 2 * (lane & 3);
+  Rows rd = row_data(labels, zt, B, row0);
+
+  for (int t = tile_lo; t < tile_hi; ++t) {
+    float dot[4];
+    chunked_cosine<VEC, true>(dot, e, B, row0, w, C, t * TC, D, eb, wb, rinv, xch);
+    __syncthreads();  // rinv
+    const float ri[2] = {rinv[cls0], rinv[cls0 + 1]};
+    fold_tile(rd, dot, ri, t * TC + cls0, C, mg);
   }
-  __syncthreads();
-  if (threadIdx.x >= TB) return;
-  const int r = threadIdx.x;
-  const int grp = r >> 4;  // rows [16 grp, 16 grp + 16) are warps 2 grp, 2 grp + 1, + 4, + 5's
-  RowState acc = {NEG_INF, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float* o = xch + ((2 * grp + (k & 1) + 4 * (k >> 1)) * 16 + (r & 15)) * 4;
-    merge(acc, {o[0], o[1], o[2], o[3]});
-  }
-  if (row0 + r >= B) return;
-  const size_t plane = (size_t)gridDim.y * B;
-  const size_t at = (size_t)split * B + row0 + r;
-  part[at] = acc.m;
-  part[plane + at] = acc.s;
-  part[2 * plane + at] = acc.zy;
-  part[3 * plane + at] = acc.cnt;
+  write_states(rd, xch, row0, B, split, part);
 }
 
 // Merge the per-split states of each row, one warp a row: lane l takes the
@@ -227,15 +292,25 @@ cudaError_t launch(const float* e, const float* w, const int* labels, const floa
                    int C, int D, int tiles_per_split, int n_splits, const Margin& mg,
                    float* part, float* lse, float* zy, float* mx, float* cnt,
                    cudaStream_t st) {
-  const int DP = padded_depth(D);
-  const size_t smem = sizeof(float) * (TB * DP + 2 * TC * DP + 2 * TC + WARPS * 128);
   static_assert(WARPS * 128 >= WARPS * 16 * 4, "xch holds the warps' row states");
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_tiles_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((B + TB - 1) / TB, n_splits);
-  fwd_tiles_kernel<VEC><<<grid, THREADS, smem, st>>>(e, w, labels, zt, B, C, D, DP,
-                                                     tiles_per_split, mg, part);
+  cudaError_t err;
+  if (D <= DMAX) {
+    const int DP = padded_depth(D);
+    const size_t smem = sizeof(float) * (TB * DP + 2 * TC * DP + 2 * TC + WARPS * 128);
+    err = cudaFuncSetAttribute(fwd_tiles_kernel<VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    fwd_tiles_kernel<VEC><<<grid, THREADS, smem, st>>>(e, w, labels, zt, B, C, D, DP,
+                                                       tiles_per_split, mg, part);
+  } else {
+    const size_t smem = sizeof(float) * (2 * (TB + TC) * KC + TC + WARPS * 128);
+    err = cudaFuncSetAttribute(fwd_chunks_kernel<VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    fwd_chunks_kernel<VEC><<<grid, THREADS, smem, st>>>(e, w, labels, zt, B, C, D,
+                                                        tiles_per_split, mg, part);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   merge_kernel<<<(B + 7) / 8, 256, 0, st>>>(part, n_splits, B, lse, zy, mx, cnt);
@@ -248,7 +323,6 @@ extern "C" {
 
 int flash_aam_fwd_block_rows() { return TB; }
 int flash_aam_fwd_block_classes() { return TC; }
-int flash_aam_fwd_max_dim() { return DMAX; }
 
 // e (B, D) f32, w (C, D) f32, labels (B,) i32, zt (B,) f32, all contiguous on
 // the card; part is scratch of 4 * n_splits * B floats with
@@ -260,7 +334,7 @@ int flash_aam_fwd(const void* e, const void* w, const void* labels, const void* 
                   void* part, void* lse, void* zy, void* mx, void* cnt,
                   void* stream) {
   const int n_tiles = (C + TC - 1) / TC;
-  if (B <= 0 || C <= 0 || D <= 0 || D > DMAX || tiles_per_split <= 0 ||
+  if (B <= 0 || C <= 0 || D <= 0 || tiles_per_split <= 0 ||
       n_splits != (n_tiles + tiles_per_split - 1) / tiles_per_split)
     return (int)cudaErrorInvalidValue;
   const Margin mg{s, cos_m, sin_m, th, mm};

@@ -1,0 +1,26 @@
+"""Host-side input pipeline (balanced samplers, chunking, prefetch) and the
+card-resident quantized feature cache.  Augmentation and the sharded cache
+are not ported yet."""
+
+from pkr_tpu_torch.data.sampler import (
+    BalancedRepetitionSampler,
+    SpeakerBalancedSampler,
+    load_utt2spkid,
+)
+from pkr_tpu_torch.data.loader import FeatureSource, TrainLoader, EvalLoader, bucket_lengths
+from pkr_tpu_torch.data.device_cache import DeviceFeatureCache, DeviceCacheLoader
+from pkr_tpu_torch.data.materialize import MaterializedSource, materialize
+
+__all__ = [
+    "BalancedRepetitionSampler",
+    "SpeakerBalancedSampler",
+    "load_utt2spkid",
+    "FeatureSource",
+    "TrainLoader",
+    "EvalLoader",
+    "bucket_lengths",
+    "DeviceFeatureCache",
+    "DeviceCacheLoader",
+    "MaterializedSource",
+    "materialize",
+]

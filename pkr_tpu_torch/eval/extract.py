@@ -1,10 +1,12 @@
 """Embedding extraction.
 
 Port of ``make_embed_fn`` and ``extract_embeddings`` from
-``pkr_tpu/eval/extract.py`` with the float transport and no mesh: masked,
-length-bucketed batches go through ``SpeakerModel.embed`` on one card, and
-every utterance is embedded once.  The quantized-code transport comes with
-the port of ``data/device_cache.dequantize``.
+``pkr_tpu/eval/extract.py`` without the mesh: masked, length-bucketed
+batches go through ``SpeakerModel.embed`` on one card, and every utterance
+is embedded once.  A batch comes as float features or, from an
+``EvalLoader`` over CompressedMatrix arks, as its uint8 codes and
+percentile tables, dequantized on the card (a quarter of the f32 bytes
+cross the host link).
 """
 
 from __future__ import annotations
@@ -14,30 +16,40 @@ from typing import Callable, Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
+from pkr_tpu_torch.data.device_cache import dequantize
 from pkr_tpu_torch.device import DeviceLike, as_device_tensor, resolve_device
 
 SEG_SEP = "##"
 
 
 def make_embed_fn(model, device: DeviceLike = None
-                  ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
-    """Returns embed(feats (B, F, T), mask (B, T)) → (B, emb_dim) on the
-    device.  The model is moved to ``device``; every call puts it in eval
-    mode, so a train step run in between does not leave BatchNorm on batch
-    statistics.
+                  ) -> Callable[..., torch.Tensor]:
+    """Returns embed(feats (B, F, T), mask (B, T), pct=None) → (B, emb_dim)
+    on the device.  The model is moved to ``device``; every call puts it in
+    eval mode, so a train step run in between does not leave BatchNorm on
+    batch statistics.
 
     Feature batches cross to the card in the trunk's compute type: for a
     bf16 model the first conv casts its input to bf16 anyway, so the cast
-    before the copy changes nothing and halves the bytes."""
+    before the copy changes nothing and halves the bytes.  With ``pct``
+    (B, 4, F), ``feats`` are CM codes (B, T, F) uint8: they cross as bytes,
+    are dequantized on the card, and the padded frames are re-zeroed (code 0
+    decodes to the column's p0, not 0.0), so the stem sees the float path's
+    zero padding."""
     dev = resolve_device(device)
     model.to(dev)
     xfer = model.dtype
 
     @torch.no_grad()
-    def embed(feats, mask):
+    def embed(feats, mask, pct=None):
         model.eval()
-        feats = as_device_tensor(feats, dev, xfer)
         mask = as_device_tensor(mask, dev, torch.bool)
+        if pct is None:
+            feats = as_device_tensor(feats, dev, xfer)
+        else:
+            codes = as_device_tensor(feats, dev, torch.uint8)
+            x = dequantize(codes, as_device_tensor(pct, dev, torch.float32))
+            feats = (x * mask[:, :, None]).transpose(1, 2).contiguous()  # (B, F, T)
         return model.embed(feats, mask)
 
     return embed
@@ -46,7 +58,8 @@ def make_embed_fn(model, device: DeviceLike = None
 def extract_embeddings(model, loader: Iterable[Tuple[List[str], object, object]],
                        device: DeviceLike = None) -> Dict[str, np.ndarray]:
     """Embed every batch of ``loader`` — any iterable of (keys, feats
-    (B, F, T), mask (B, T)) — and return {utt: embedding}.
+    (B, F, T) or (codes (B, T, F) uint8, pct (B, 4, F)), mask (B, T)) — and
+    return {utt: embedding}.
 
     Segment keys ('<utt>##<k>') are mean-pooled back into one embedding per
     utterance.  Up to four batches stay in flight before their embeddings
@@ -68,7 +81,11 @@ def extract_embeddings(model, loader: Iterable[Tuple[List[str], object, object]]
 
     pending: List[Tuple[List[str], torch.Tensor]] = []
     for keys, feats, mask in loader:
-        pending.append((list(keys), embed(feats, mask)))
+        if isinstance(feats, tuple):  # quantized transport (codes, pct)
+            emb = embed(feats[0], mask, pct=feats[1])
+        else:
+            emb = embed(feats, mask)
+        pending.append((list(keys), emb))
         if len(pending) >= 4:
             k, e = pending.pop(0)
             absorb(k, e.cpu().numpy())

@@ -65,12 +65,22 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        n = x.numel() // x.shape[1]
+        if n == 1:
+            # F.batch_norm refuses one value per channel in train mode; flax
+            # takes it as its own mean with variance 0 and returns β
+            shape = (1, -1) + (1,) * (x.ndim - 2)
+            mean = x.reshape(-1).to(self.running_mean.dtype)
+            var = torch.zeros_like(self.running_var)
+            y = ((x - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+                 * self.weight.view(shape) + self.bias.view(shape))
+            self.staged = (mean.detach(), var)
+            return y.to(x.dtype)
         # with momentum 1.0 the scratch buffers receive the batch's own mean
         # and unbiased variance from the very pass that normalizes
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
-        n = x.numel() // x.shape[1]
         self.staged = (mean, var * ((n - 1) / n))
         return y
 

@@ -43,7 +43,8 @@ _NEG_INF = -1e30
 _KERNEL = "flash_aam_fwd"
 _BWD_KERNEL = "flash_aam_bwd"
 # CUDA blocks per SM to aim for when the class axis is split: two of either
-# kernel's blocks fill an SM's shared memory at D = 256
+# kernel's blocks fill an SM's shared memory at D = 256, and the chunked
+# blocks of D > 256 take about as much
 _BLOCKS_PER_SM = 2
 
 
@@ -172,15 +173,13 @@ def _on_card(e_hat, others, op):
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """(launch function, block rows, block classes, largest D) of the built
-    library."""
+    """(launch function, block rows, block classes) of the built library."""
     lib = _native.load(_KERNEL)
     fn = lib.flash_aam_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
                    + [ctypes.c_void_p] * 6)
-    return (fn, lib.flash_aam_fwd_block_rows(), lib.flash_aam_fwd_block_classes(),
-            lib.flash_aam_fwd_max_dim())
+    return fn, lib.flash_aam_fwd_block_rows(), lib.flash_aam_fwd_block_classes()
 
 
 @functools.lru_cache(maxsize=None)
@@ -198,11 +197,9 @@ def _n_splits(n_tiles, n_btiles, dev):
 
 
 def _launch(e_hat, weight, labels, zt, m, s):
-    fn, bm, bn, max_d = _kernel()
+    fn, bm, bn = _kernel()
     B, D = e_hat.shape
     C = weight.shape[0]
-    if D > max_d:
-        raise ValueError(f"the flash_aam_fwd kernel takes D <= {max_d}, got {D}")
     dev = e_hat.device
     e_hat, weight, zt = (t.contiguous() for t in (e_hat, weight, zt))
     labels = labels.to(torch.int32).contiguous()
@@ -229,8 +226,8 @@ def flash_aam_fwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tenso
 
     e_hat (B, D) f32 L2-normalized embeddings, weight (C, D) f32 raw class
     weights, labels (B,) integer, zt (B,) f32 margined target logits.  A CUDA
-    tensor launches the kernel (counted in ``flash_aam_fwd.launches``; D <=
-    256) or raises; a CPU tensor runs the plain version (``tile`` sets its
+    tensor launches the kernel (counted in ``flash_aam_fwd.launches``; any
+    D) or raises; a CPU tensor runs the plain version (``tile`` sets its
     class tile; the kernel tiles by its own 32 × 32 blocks)."""
     _check_inputs(e_hat, weight, labels, (zt,), ("zt",))
     if _on_card(e_hat, {"weight": weight, "labels": labels, "zt": zt}, "flash_aam_fwd"):
@@ -243,23 +240,20 @@ flash_aam_fwd.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    """(launch function, block rows, block classes, largest D) of the built
-    backward library."""
+    """(launch function, block rows, block classes) of the built backward
+    library."""
     lib = _native.load(_BWD_KERNEL)
     fn = lib.flash_aam_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
                    + [ctypes.c_void_p] * 4)
-    return (fn, lib.flash_aam_bwd_block_rows(), lib.flash_aam_bwd_block_classes(),
-            lib.flash_aam_bwd_max_dim())
+    return fn, lib.flash_aam_bwd_block_rows(), lib.flash_aam_bwd_block_classes()
 
 
 def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
-    fn, bm, bn, max_d = _bwd_kernel()
+    fn, bm, bn = _bwd_kernel()
     B, D = e_hat.shape
     C = weight.shape[0]
-    if D > max_d:
-        raise ValueError(f"the flash_aam_bwd kernel takes D <= {max_d}, got {D}")
     dev = e_hat.device
     e_hat, weight, lse, g = (t.contiguous() for t in (e_hat, weight, lse, g))
     labels = labels.to(torch.int32).contiguous()
@@ -288,7 +282,7 @@ def flash_aam_bwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tenso
     e_hat (B, D) f32 L2-normalized embeddings, weight (C, D) f32, labels (B,)
     integer, lse (B,) f32 from the forward, g (B,) f32 per-example loss
     gradient.  A CUDA tensor launches the kernel (counted in
-    ``flash_aam_bwd.launches``; D <= 256) or raises; a CPU tensor runs the
+    ``flash_aam_bwd.launches``; any D) or raises; a CPU tensor runs the
     plain version with class tile ``tile``."""
     _check_inputs(e_hat, weight, labels, (lse, g), ("lse", "g"))
     if _on_card(e_hat, {"weight": weight, "labels": labels, "lse": lse, "g": g},

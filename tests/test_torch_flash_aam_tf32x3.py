@@ -17,6 +17,13 @@ rows of examples whose target cosine sits at the sin clip (see
 _off_the_clip).  The saturated case's cosine is exactly 1.0.  It also shows
 that the split's error is at least 10× below that of one TF32 product (big
 parts only), so the checks can tell the two apart.
+
+Rows deeper than 256 (D = 300, 512) take the kernels' chunked path
+(flash_aam_cosine.cuh: chunked_cosine): the depth in chunks of 128, the
+last padded with zeros, each chunk's dot the sum of its two 64-deep halves,
+each half the f32 sum of its 16-deep 3×TF32 products in order, and the
+chunks' dots added in chunk order.  mm_chunked emulates that order for the
+depth product and is held to the Pallas kernels at the same bars.
 """
 
 import numpy as np
@@ -51,6 +58,39 @@ def mm_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_big, a_small = split(a)
     b_big, b_small = split(b)
     return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+KC = 128  # depth chunk of the kernels' chunked path (flash_aam_cosine.cuh)
+
+
+def mm_chunked(depth: int):
+    """A product like mm_tf32x3, but one whose contraction is ``depth``
+    (> 256) is summed as the chunked kernels sum it: 16-deep 3×TF32 steps
+    added in order within each 64-deep half of a 128-deep chunk, the two
+    halves added, then the chunks' dots added in chunk order (zeros pad the
+    last chunk and add nothing)."""
+
+    def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        if a.shape[1] != depth:
+            return mm_tf32x3(a, b)
+        total = None
+        for c0 in range(0, depth, KC):
+            halves = []
+            for h0 in (c0, c0 + KC // 2):
+                acc = None
+                for k0 in range(h0, min(h0 + KC // 2, depth), 16):
+                    part = mm_tf32x3(a[:, k0:k0 + 16], b[k0:k0 + 16])
+                    acc = part if acc is None else acc + part
+                halves.append(acc)
+            dot = halves[0] if halves[1] is None else halves[0] + halves[1]
+            total = dot if total is None else total + dot
+        return total
+
+    return mm
+
+
+DEEP_CASES = {"D300": (make(B=24, D=300, C=200, seed=12), 128),
+              "D512": (make(B=24, D=512, C=300, seed=13), 256)}
 
 
 def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -192,6 +232,42 @@ def test_tf32x3_bwd_matches_pallas_bwd(name, monkeypatch):
     for gt, r, keep in zip(got, ref, (rows, classes)):
         assert np.isfinite(gt).all() and gt.shape == r.shape
         _row_ok(gt[keep], r[keep])
+
+
+@pytest.mark.parametrize("name", list(DEEP_CASES))
+def test_chunked_tf32x3_matches_pallas(name, monkeypatch):
+    """D > 256: the plain forward and backward with the depth product summed
+    in the chunked kernels' order (mm_chunked) against the Pallas kernels in
+    interpret mode, at the bars of the two tests above; the chunked sum is
+    f32-accurate (within 4× of a plain f32 product's error)."""
+    (emb, w, labels), tile = DEEP_CASES[name]
+    D = emb.shape[1]
+    mm = mm_chunked(D)
+    a, b = torch.from_numpy(emb), torch.from_numpy(w).T
+    exact = a.double() @ b.double()
+    err = float((mm(a, b).double() - exact).abs().max())
+    assert err <= 4 * float(((a @ b).double() - exact).abs().max()) + 1e-6
+    rows, classes = _off_the_clip(emb, w, labels)
+    assert rows.all()
+
+    e_hat_j, _ = jax_flash._normalize(jnp.asarray(emb))
+    ref = [np.asarray(r) for r in jax_flash._fwd_pallas(
+        e_hat_j, jnp.asarray(w), jnp.asarray(labels), 0.2, 30.0, tile, True)]
+    monkeypatch.setattr(port_flash, "_mm", mm)
+    e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+    wt, lt = torch.from_numpy(w), torch.from_numpy(labels)
+    zt = port_flash._margined_target_z(e_hat, wt, lt, 0.2, 30.0)
+    got = [g.numpy() for g in port_flash.flash_aam_fwd(e_hat, wt, lt, zt, 0.2, 30.0, tile)]
+    for g, r in zip(got[:3], ref[:3]):
+        np.testing.assert_allclose(g, r, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got[3], ref[3])
+    np.testing.assert_array_equal(got[1] >= got[2], ref[1] >= ref[2])
+
+    lse, g, ref = _pallas(emb, w, labels, tile)
+    got = _port_bwd(emb, w, labels, lse, g, tile, mm, monkeypatch)
+    for gt, r in zip(got, ref):
+        assert np.isfinite(gt).all() and gt.shape == r.shape
+        _row_ok(gt, r)
 
 
 def test_saturated_cosine_is_exact():

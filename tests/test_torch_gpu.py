@@ -18,9 +18,10 @@ cancels and s·Δcos/(1 − p) magnifies any cosine rounding ~4000×) is held
 to the plain version run in f64: the f32 plain version is itself ~3e-3 off
 there.  Two calls of either kernel on the same inputs give the same bits.
 The two kernels form the same cosine bits: with one class, the backward's
-gradients from the forward's own lse are exactly 0.  Both take D <= 256
-and raise ValueError above it.  The flash gradients against the dense
-head's autograd (cuBLAS f32) at rtol 2e-3, atol 1e-6 as
+gradients from the forward's own lse are exactly 0, at D <= 256 and at
+D > 256, where both stream the depth in chunks (D = 300, 512 and 1024 are
+held to the plain version in both directions).  The flash gradients
+against the dense head's autograd (cuBLAS f32) at rtol 2e-3, atol 1e-6 as
 tests/test_flash_aam.py, and row by row within 1e-3.
 """
 
@@ -71,16 +72,6 @@ def test_flash_aam_fwd_rejects_bad_inputs():
 
 
 @pytest.mark.gpu
-def test_flash_aam_fwd_rejects_deep_rows():
-    dev = _card()
-    e = torch.zeros((4, 257), device=dev)
-    with pytest.raises(ValueError, match="D <= 256"):
-        flash_aam.flash_aam_fwd(e, torch.ones((5, 257), device=dev),
-                                torch.zeros(4, dtype=torch.int64, device=dev),
-                                torch.zeros(4, device=dev))
-
-
-@pytest.mark.gpu
 def test_flash_aam_fwd_is_deterministic():
     dev = _card()
     rng = np.random.default_rng(3)
@@ -97,7 +88,7 @@ def test_flash_aam_fwd_is_deterministic():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("B,D", [(256, 256), (100, 37)])
+@pytest.mark.parametrize("B,D", [(256, 256), (100, 37), (256, 512), (100, 300)])
 def test_fwd_and_bwd_cosines_agree_bit_for_bit(B, D, exact):
     """With one class and every label 0, the forward's lse is its zy, so the
     backward's p = exp(z − lse) is exactly 1 and its gradients exactly 0
@@ -176,6 +167,15 @@ def test_flash_aam_bwd_matches_plain(B, C, D, confident):
     keep[labels] = True
     fault[~keep] = 0.0
     assert _row_rel_err(fault, ref[1]) > 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [300, 512, 1024])
+def test_flash_aam_deep_rows_match_plain(D):
+    """D > 256 (the chunked path of both kernels) against the plain
+    versions at the bars above, forward and backward."""
+    test_flash_aam_fwd_matches_plain(100, 2001, D)
+    test_flash_aam_bwd_matches_plain(100, 2001, D, False)
 
 
 @pytest.mark.gpu

@@ -32,6 +32,7 @@ from pkr_tpu.eval.scoring import cosine_scores as jax_cosine_scores
 from pkr_tpu.models import SpeakerModel as FlaxSpeakerModel
 from pkr_tpu.train.loop import make_eval_step as jax_make_eval_step
 from pkr_tpu_torch.convert import state_dict_from_flax
+from pkr_tpu_torch.data import BalancedRepetitionSampler, DeviceCacheLoader, DeviceFeatureCache
 from pkr_tpu_torch.eval import compute_eer, cosine_scores, extract_embeddings
 from pkr_tpu_torch.models import SpeakerModel
 from pkr_tpu_torch.train import make_eval_step, make_train_step
@@ -131,11 +132,11 @@ def test_package_imports_neither_jax_nor_pkr_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15  # every submodule was imported
+    assert int(proc.stdout.split()[-1]) >= 27  # every submodule was imported
 
 
 @pytest.mark.parametrize("call", ["frontend", "model", "eval_step", "train_step",
-                                  "scores"])
+                                  "scores", "cache_build", "cache_loader"])
 def test_entry_points_raise_without_a_card(call, monkeypatch):
     """device=None means the card; where there is none, raise instead of
     quietly running on the CPU."""
@@ -152,6 +153,12 @@ def test_entry_points_raise_without_a_card(call, monkeypatch):
         elif call == "train_step":
             tm = SpeakerModel(SPK, 40, loss="AAM", trunk="tiny_resnet", device="cpu")
             make_train_step(tm, flash_aam=True)
-        else:
+        elif call == "scores":
             v = {"a": np.ones(4, np.float32), "b": np.ones(4, np.float32)}
             cosine_scores(v, v, [("a", "b")])
+        elif call == "cache_build":
+            DeviceFeatureCache.build({"u": np.ones((30, 8), np.float32)}, {"u": 0})
+        else:
+            cache = DeviceFeatureCache.build({"u": np.ones((30, 8), np.float32)}, {"u": 0},
+                                             device="cpu")
+            DeviceCacheLoader(cache, BalancedRepetitionSampler(["u"], [0]), 1)
