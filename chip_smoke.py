@@ -44,6 +44,27 @@ Phases, one JSON line each:
           extraction over the quantized transport → cosine scores → EER,
           with loader rates, the native reader's cost per call, step times
           and bytes sent to the card;
+  recipe  the recipe CLI, python -m pkr_tpu_torch.recipes.run, through its
+          main on the card (no --device): stages 0-1 over 512 synthetic 6-s
+          wavs of 128 speakers (cut from a corpus so the phase fits the
+          script's time; default frontend, dither from the seed); then, on a
+          synthetic CM-compressed corpus at the train phase's width (7325
+          speakers x 2 utterances, placed as stage 1 would leave it) and a
+          test side of 256 other speakers x 4 utterances with ~20k trials
+          from voxceleb.make_trials: softmax_plda, one epoch on the
+          card-resident cache (stages 2-3); aam_v2 warm-started from it with
+          the flash head, one epoch, a 2048-utterance cohort extraction and
+          S-norm scoring (stages 2-6); the same resumed to 2 epochs (stage 3
+          runs epoch 2 only); stage 6 again with PLDA and cosine.  Gates:
+          finite losses, the warm start loads what pkr_tpu's rule loads,
+          'latest', and 'best' where a cv top-1 beat the running best (the
+          short runs here stay at 0, so a re-save of the trained model with
+          is_best must give a 'best' that restores), one finite score per
+          trial, EER and minDCF in [0, 1], both kernels launched.  Prints
+          stage-1 utterances/s, train ms/step per run, checkpoint
+          save/best-save/restore ms and bytes, extraction
+          utterances/s, cohort top-k ms, scoring s and EER/minDCF per
+          backend;
   kernels every kernel with its launches on the paths and its errors.
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
@@ -886,39 +907,44 @@ EXTRACT_SPK = 256     # speakers whose utterances are extracted and scored
 WINDOW = 8            # steps per timing window (train_and_validate's print_freq)
 
 
-def write_corpus(root, seed=0):
-    """A synthetic Kaldi data dir under `root`: SPK speakers × 2 utterances
-    of 250–450 frames (every 97th one 120–199, shorter than the crop) of 40
-    log-mel-like values (a speaker's envelope, a channel offset per
-    utterance, frame noise), as CM-compressed feats.ark/feats.scp, utt2spk,
-    spk2utt and utt2spkid (the recipe's data prep: assign_spk_ids,
-    train_cv_split); `train` and `cv` subdirectories hold the split.
-    Returns (DataDir of everything, number of frames)."""
+def write_corpus(root, seed=0, n_spk=SPK, per_spk=CORPUS_UTTS_PER_SPK, prefix="spk",
+                 split=True):
+    """A synthetic Kaldi data dir under `root`: n_spk speakers × per_spk
+    utterances of 250–450 frames (every 97th one 120–199, shorter than the
+    crop) of 40 log-mel-like values (a speaker's envelope, a channel offset
+    per utterance, frame noise), as CM-compressed feats.ark/feats.scp,
+    utt2spk, spk2utt, utt2num_frames and utt2spkid (the recipe's data prep:
+    assign_spk_ids, train_cv_split); with `split`, `train` and `cv`
+    subdirectories hold the split.  Returns (DataDir of everything, number
+    of frames)."""
     from pkr_tpu_torch.io import DataDir, kaldi_ark
 
     rng = np.random.default_rng(seed)
-    envelope = rng.uniform(4.0, 14.0, (SPK, 40)).astype(np.float32)
-    utt2spk, frames = {}, 0
+    envelope = rng.uniform(4.0, 14.0, (n_spk, 40)).astype(np.float32)
+    utt2spk, utt2nf, frames = {}, {}, 0
     with kaldi_ark.write_ark_scp(os.path.join(root, "feats.ark"),
                                  os.path.join(root, "feats.scp"), compress=True) as w:
-        for s in range(SPK):
-            for j in range(CORPUS_UTTS_PER_SPK):
-                key = f"spk{s:04d}-u{j}"
+        for s in range(n_spk):
+            for j in range(per_spk):
+                key = f"{prefix}{s:04d}-u{j}"
                 n = len(utt2spk)
                 rows = int(rng.integers(120, 200) if n % 97 == 5 else rng.integers(250, 451))
                 mat = (envelope[s] + rng.normal(0.0, 1.0, 40).astype(np.float32)
                        + 1.5 * rng.standard_normal((rows, 40), dtype=np.float32))
                 w.write(key, mat)
-                utt2spk[key] = f"spk{s:04d}"
+                utt2spk[key] = f"{prefix}{s:04d}"
+                utt2nf[key] = str(rows)
                 frames += rows
     scp = {k: v for k, v in (ln.split(None, 1) for ln in
                              open(os.path.join(root, "feats.scp")).read().splitlines())}
-    data, n_spk = DataDir({"utt2spk": utt2spk, "feats.scp": scp}).make_spk2utt().assign_spk_ids()
-    check(n_spk == SPK, f"{n_spk} speakers")
+    data, got_spk = DataDir({"utt2spk": utt2spk, "feats.scp": scp,
+                             "utt2num_frames": utt2nf}).make_spk2utt().assign_spk_ids()
+    check(got_spk == n_spk, f"{got_spk} speakers")
     data.save(root)
-    train, cv = data.train_cv_split(CORPUS_CV / len(utt2spk), seed=seed)
-    train.save(os.path.join(root, "train"))
-    cv.save(os.path.join(root, "cv"))
+    if split:
+        train, cv = data.train_cv_split(CORPUS_CV / len(utt2spk), seed=seed)
+        train.save(os.path.join(root, "train"))
+        cv.save(os.path.join(root, "cv"))
     return data, frames
 
 
@@ -1181,6 +1207,305 @@ def phase_corpus(torch, smi_line):
     return launches
 
 
+RECIPE_WAVS = 512       # stage 1's synthetic 6-s wavs
+RECIPE_WAV_SPK = 128
+TEST_SPK = 256          # the test side: other speakers, 4 utterances each
+TEST_UTTS = 4
+TRIAL_TEST_SPK = 26     # speakers whose u1–u3 are trial test sides (~20k trials)
+COHORT_SUBSET = 2048
+RECIPE_PRINT_FREQ = 8
+
+
+class _Stamped:
+    """A stdout stand-in for the recipe's prints: keeps every line with the
+    host time it was written at."""
+
+    def __init__(self):
+        self.lines, self._buf = [], ""
+
+    def write(self, text):
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def _run_main(argv, log):
+    """recipes.run.main(argv) with its prints kept in `log` (a _Stamped);
+    returns the stage durations in s, by stage, from the stage headers."""
+    import contextlib
+
+    from pkr_tpu_torch.recipes.run import main as recipe_main
+
+    start = len(log.lines)
+    with contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        rc = recipe_main(argv)
+        t_end = time.perf_counter()
+    check(rc == 0, f"main({argv}) returned {rc}")
+    heads = [(t, int(line.split()[2].rstrip(":"))) for t, line in log.lines[start:]
+             if line.startswith("== stage ")]
+    marks = [t for t, _ in heads] + [t_end]
+    stages = {}
+    for (t, stage), nxt in zip(heads, marks[1:]):
+        stages[stage] = stages.get(stage, 0.0) + (nxt - t)
+    stages["total"] = t_end - t0
+    return stages
+
+
+def _jsonl(path):
+    return [json.loads(line) for line in open(path)] if os.path.exists(path) else []
+
+
+def _train_speed(records):
+    """ms/step and examples/s of one run from its step records (logged after a
+    synchronize every RECIPE_PRINT_FREQ steps): the median of the windows
+    between records, the first window (cuDNN's first calls) left out."""
+    stamps = [r["t"] for r in records if "step" in r]
+    windows = [1e3 * (b - a) / RECIPE_PRINT_FREQ for a, b in zip(stamps, stamps[1:])]
+    check(len(windows) >= 2, f"too few step records to time: {len(stamps)}")
+    ms = float(np.median(windows))
+    return {"ms_per_step": ms, "window_ms": windows, "examples_per_s": TRAIN_B * 1e3 / ms,
+            "steps_logged": [r["step"] for r in records if "step" in r]}
+
+
+def _check_scores(exp, n_trials, backend):
+    rows = [line.split() for line in open(os.path.join(exp, "scores.txt"))]
+    check(len(rows) == n_trials and all(len(r) == 3 for r in rows),
+          f"{backend}: scores.txt has {len(rows)} rows for {n_trials} trials")
+    scores = np.array([float(r[2]) for r in rows])
+    check(np.isfinite(scores).all(), f"{backend}: non-finite scores")
+    res = json.load(open(os.path.join(exp, "results.json")))
+    vals = [res["eer"], res["min_dcf_p0.01"], res["min_dcf_p0.001"]]
+    check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals),
+          f"{backend}: results {res}")
+    return res
+
+
+def phase_recipe(torch, smi_line):
+    """The recipe CLI, python -m pkr_tpu_torch.recipes.run, through its main
+    on the card (no --device: the default is the card).  The recipe's own
+    prints are kept, and written to stderr if the phase fails."""
+    import tempfile
+
+    log = _Stamped()
+    with tempfile.TemporaryDirectory(prefix="pkr_recipe_") as root:
+        try:
+            return _recipe_runs(torch, smi_line, root, log)
+        except BaseException:
+            sys.stderr.write("\n".join(line for _, line in log.lines[-200:]) + "\n")
+            raise
+
+
+def _recipe_runs(torch, smi_line, root, log):
+    import dataclasses
+
+    from pkr_tpu_torch.eval.scoring import cohort_topk_stats
+    from pkr_tpu_torch.io import DataDir, kaldi_ark, load_text_vec_ark
+    from pkr_tpu_torch.io.wav import write_wav
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.recipes import voxceleb
+    from pkr_tpu_torch.recipes.presets import PRESETS
+    from pkr_tpu_torch.recipes.run import build_model
+    from pkr_tpu_torch.train import restore_checkpoint, save_checkpoint
+
+    dev = torch.device("cuda")
+    j = os.path.join
+    # --- inputs, made before the main path ---
+    wav_root = j(root, "wavs")
+    os.makedirs(wav_root)
+    wavs, _ = make_wavs(RECIPE_WAVS, seed=3)
+    utt2spk, wav_scp = {}, {}
+    for i in range(RECIPE_WAVS):
+        spk = f"w{i % RECIPE_WAV_SPK:03d}"
+        utt = f"{spk}-{i // RECIPE_WAV_SPK}"
+        path = j(wav_root, f"{utt}.wav")
+        write_wav(path, wavs[i])
+        utt2spk[utt], wav_scp[utt] = spk, path
+    del wavs
+    wav_data = j(root, "wav_data")
+    DataDir({"utt2spk": utt2spk, "wav.scp": wav_scp}).make_spk2utt().save(wav_data)
+
+    corpus = j(root, "corpus")
+    os.makedirs(corpus)
+    t0 = time.perf_counter()
+    data, frames = write_corpus(corpus, split=False)
+    test_corpus = j(root, "test_corpus")
+    os.makedirs(test_corpus)
+    test, _ = write_corpus(test_corpus, seed=7, n_spk=TEST_SPK, per_spk=TEST_UTTS,
+                           prefix="tst", split=False)
+    write_s = time.perf_counter() - t0
+    # the layout stage 1 would have left: feats.scp + utt2num_frames under
+    # <exp>/feats (and feats_test), utt2spk in the data dirs
+    data_dir, test_dir = j(root, "data"), j(root, "data_test")
+    DataDir({"utt2spk": data["utt2spk"]}).make_spk2utt().save(data_dir)
+    DataDir({"utt2spk": test["utt2spk"]}).make_spk2utt().save(test_dir)
+    exp_sm, exp_aam = j(root, "exp_softmax"), j(root, "exp_aam")
+    for exp in (exp_sm, exp_aam):
+        DataDir({"feats.scp": data["feats.scp"],
+                 "utt2num_frames": data["utt2num_frames"]}).save(j(exp, "feats"))
+    DataDir({"feats.scp": test["feats.scp"]}).save(j(exp_aam, "feats_test"))
+    # trials: make_trials' full cross of the enroll speakers (each one's u0)
+    # and the u1–u3 of TRIAL_TEST_SPK speakers; the enroll key is the u0
+    t_u2s = test["utt2spk"]
+    enroll = DataDir({"utt2spk": {u: s for u, s in t_u2s.items() if u.endswith("-u0")}})
+    probe = DataDir({"utt2spk": {u: s for u, s in t_u2s.items() if not u.endswith("-u0")
+                                 and int(s[3:]) < TRIAL_TEST_SPK}})
+    trials = [(f"{e}-u0", t, lab) for e, t, lab in
+              voxceleb.make_trials(enroll, probe, "rude")]
+    trials_path = j(root, "trials")
+    voxceleb.write_trials(trials_path, trials)
+    n_target = sum(lab == "target" for _, _, lab in trials)
+    check(0 < n_target < len(trials), f"{n_target} targets in {len(trials)} trials")
+
+    sm = PRESETS["softmax_plda"]()
+    sm = dataclasses.replace(sm, train=dataclasses.replace(
+        sm.train, epochs=1, batch_size=TRAIN_B, device_cache=True,
+        print_freq=RECIPE_PRINT_FREQ))
+    aam = PRESETS["aam_v2"]()
+    aam = dataclasses.replace(
+        aam, train=dataclasses.replace(aam.train, epochs=1, batch_size=TRAIN_B,
+                                       device_cache=True, flash_aam=True,
+                                       pretrained=j(exp_sm, "checkpoints"),
+                                       print_freq=RECIPE_PRINT_FREQ),
+        eval=dataclasses.replace(aam.eval, cohort_subset=COHORT_SUBSET))
+    resume = dataclasses.replace(aam, train=dataclasses.replace(aam.train, epochs=2,
+                                                                resume=True))
+    cfgs = {}
+    for name, cfg in (("softmax", sm), ("aam", aam), ("resume", resume)):
+        cfgs[name] = j(root, f"{name}.json")
+        with open(cfgs[name], "w") as f:
+            f.write(cfg.to_json())
+    common = ["--data-dir", data_dir, "--test-data-dir", test_dir, "--trials", trials_path]
+    jsonl_sm, jsonl_aam = j(exp_sm, "train_metrics.jsonl"), j(exp_aam, "train_metrics.jsonl")
+
+    # --- the main path, with every kernel count at 0 just before it ---
+    fa.flash_aam_fwd.launches = 0
+    fa.flash_aam_bwd.launches = 0
+    t_path = time.perf_counter()
+    st1 = _run_main(["--preset", "aam_v2", "--stage", "0", "--stop-stage", "1",
+                     "--data-dir", wav_data, "--exp-dir", j(root, "exp_wav")], log)
+    st_sm = _run_main(["--config", cfgs["softmax"], "--stage", "2", "--stop-stage", "3",
+                       "--exp-dir", exp_sm] + common, log)
+    n_sm = len(_jsonl(jsonl_sm))
+    st_aam = _run_main(["--config", cfgs["aam"], "--stage", "2", "--stop-stage", "6",
+                        "--exp-dir", exp_aam] + common, log)
+    warm = [line for _, line in log.lines if line.startswith("warm start:")]
+    n_aam = len(_jsonl(jsonl_aam))
+    res = {"snorm": _check_scores(exp_aam, len(trials), "snorm")}
+    st_resume = _run_main(["--config", cfgs["resume"], "--stage", "3", "--stop-stage", "3",
+                           "--exp-dir", exp_aam] + common, log)
+    latest_after_resume = open(j(exp_aam, "checkpoints", "latest")).read()
+    st_score = {}
+    for backend in ("plda", "cosine"):
+        st_score[backend] = _run_main(["--config", cfgs["resume"], "--stage", "6",
+                                       "--stop-stage", "6", "--backend", backend,
+                                       "--exp-dir", exp_aam] + common, log)
+        res[backend] = _check_scores(exp_aam, len(trials), backend)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t_path
+    launches = {"flash_aam_fwd": fa.flash_aam_fwd.launches,
+                "flash_aam_bwd": fa.flash_aam_bwd.launches}
+    # --- end of the main path ---
+
+    check(launches["flash_aam_fwd"] > 0 and launches["flash_aam_bwd"] > 0,
+          f"the recipe path launched {launches}")
+    feat_dir = j(root, "exp_wav", "feats")
+    nf = dict(line.split() for line in open(j(feat_dir, "utt2num_frames")))
+    check(sorted(nf) == sorted(utt2spk) and all(int(v) > 0 for v in nf.values()),
+          "stage 1 left utterances out or kept no frame")
+    first = kaldi_ark.read_mat(dict(line.split(None, 1) for line in
+                                    open(j(feat_dir, "feats.scp")))[sorted(nf)[0]].strip())
+    check(first.shape[1] == 40 and np.isfinite(first).all(), f"stage 1 features {first.shape}")
+    stage1_bytes = sum(os.path.getsize(j(feat_dir, f)) for f in ("feats.ark", "vad.ark"))
+
+    records_sm, records_aam = _jsonl(jsonl_sm), _jsonl(jsonl_aam)
+    losses = [r["loss"] for r in records_sm + records_aam if "loss" in r]
+    check(len(losses) > 0 and np.isfinite(losses).all(), "non-finite loss in train_metrics")
+    cv_epochs = [r["epoch"] for r in records_aam if "CV" in r["msg"]]
+    check(cv_epochs == [0, 1], f"the AAM runs validated epochs {cv_epochs} (the resume must "
+                               "run epoch 1 only)")
+    check(latest_after_resume == "ckpt_2", f"latest after the resume: {latest_after_resume}")
+    # 'latest' always; 'best' once a cv top-1 beat the running best (0 at
+    # the start, as in pkr_tpu)
+    cv_acc1 = {}
+    for tag, exp, records in (("softmax", exp_sm, records_sm), ("aam", exp_aam, records_aam)):
+        cv_acc1[tag] = [r["acc1"] for r in records if "CV" in r["msg"]]
+        check(os.path.exists(j(exp, "checkpoints", "latest")), f"{exp}: no latest")
+        check(os.path.exists(j(exp, "checkpoints", "best")) == (max(cv_acc1[tag]) > 0),
+              f"{exp}: 'best' does not follow the cv top-1 {cv_acc1[tag]}")
+    # pkr_tpu's warm-start rule for softmax → AAM: every trunk and fc1
+    # variable loads; the subtrees params/bn1, params/last and
+    # batch_stats/bn1 are skipped, once each
+    model = build_model(aam.model, SPK, dev)
+    want = [k for k in model.state_dict() if k.startswith(("res.", "fc1."))
+            and not k.endswith("num_batches_tracked")]
+    check(warm == [f"warm start: loaded {len(want)} tensors, skipped 3"],
+          f"warm start printed {warm}, pkr_tpu's rule gives {len(want)} loaded, 3 skipped")
+
+    # checkpoint save and restore at the flagship's size (off the path)
+    ck_dir = j(root, "ck_timing")
+    t0 = time.perf_counter()
+    state = restore_checkpoint(j(exp_aam, "checkpoints"), model)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    save_checkpoint(ck_dir, model, state, sync=True)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    ck_bytes = os.path.getsize(j(ck_dir, "ckpt_2", "state.pt"))
+    # the best copy on the card's data: a re-save of the epoch with is_best
+    # goes to ckpt_2.v1, 'latest' names it, 'best' copies it and restores
+    t0 = time.perf_counter()
+    save_checkpoint(ck_dir, model, state, is_best=True)
+    save_best_ms = 1e3 * (time.perf_counter() - t0)
+    check(open(j(ck_dir, "latest")).read() == "ckpt_2.v1", "latest after the best save")
+    best_state = restore_checkpoint(ck_dir, model, which="best")
+    check(best_state is not None and int(best_state.step) == int(state.step)
+          and best_state.epoch == state.epoch, "the 'best' copy does not restore")
+
+    # cohort statistics of the test set against 7325 means (the trained
+    # class weight rows), on the card
+    test_vecs = load_text_vec_ark(j(exp_aam, "test.iv"))
+    means = model.last.weight.detach().cpu().numpy()
+    topk_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        stats = cohort_topk_stats(test_vecs, means, 300)
+        topk_ms.append(1e3 * (time.perf_counter() - t0))
+    check(len(stats) == TEST_SPK * TEST_UTTS and
+          all(np.isfinite(v).all() for v in stats.values()), "cohort statistics")
+
+    n_cohort = len(load_text_vec_ark(j(exp_aam, "train.iv")))
+    check(n_cohort == COHORT_SUBSET, f"cohort extraction of {n_cohort} utterances")
+    n_extract = n_cohort + TEST_SPK * TEST_UTTS
+    speed = {"softmax": _train_speed(records_sm[:n_sm]),
+             "aam": _train_speed(records_aam[:n_aam]),
+             "aam_resume": _train_speed(records_aam[n_aam:])}
+    emit({"phase": "recipe", "launches": launches, "path_seconds": path_s,
+          "corpus": {"speakers": SPK, "utterances": len(data["utt2spk"]), "frames": frames,
+                     "test_utterances": len(t_u2s), "write_seconds": write_s},
+          "stage1": {"wavs": RECIPE_WAVS, "seconds": st1.get(1),
+                     "utterances_per_s": RECIPE_WAVS / st1[1], "bytes_written": stage1_bytes},
+          "stage_seconds": {"softmax": st_sm, "aam": st_aam, "aam_resume": st_resume,
+                            "score_plda": st_score["plda"],
+                            "score_cosine": st_score["cosine"]},
+          "train": speed, "cv_acc1": cv_acc1, "warm_start": warm[0],
+          "checkpoint": {"save_ms": save_ms, "save_best_ms": save_best_ms,
+                         "restore_ms": restore_ms, "bytes": ck_bytes},
+          "extraction": {"utterances": n_extract, "seconds": st_aam[4],
+                         "utterances_per_s": n_extract / st_aam[4]},
+          "cohort_topk_ms": topk_ms, "cohort_topk_shape": [len(test_vecs), len(means)],
+          "run_score_seconds": {"snorm": st_aam[6], "plda": st_score["plda"][6],
+                                "cosine": st_score["cosine"][6]},
+          "n_trials": len(trials), "n_target": n_target, "results": res,
+          "card": smi_line})
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
@@ -1217,6 +1542,7 @@ def main():
         launches = phase_slice(torch, smi_line)
         train_launches = phase_train(torch, smi_line)
         corpus_launches = phase_corpus(torch, smi_line)
+        recipe_launches = phase_recipe(torch, smi_line)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1227,12 +1553,14 @@ def main():
                       "pkr_tpu/ops/flash_aam.py:53",
                       {"slice": launches["flash_aam_fwd"],
                        "train": train_launches["flash_aam_fwd"],
-                       "corpus": corpus_launches["flash_aam_fwd"]},
+                       "corpus": corpus_launches["flash_aam_fwd"],
+                       "recipe": recipe_launches["flash_aam_fwd"]},
                       rows, rows[0], ("max_abs_err_lse", "max_abs_err_zy")),
         _kernel_entry("flash_aam_bwd", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
                       "pkr_tpu/ops/flash_aam.py:197",
                       {"train": train_launches["flash_aam_bwd"],
-                       "corpus": corpus_launches["flash_aam_bwd"]},
+                       "corpus": corpus_launches["flash_aam_bwd"],
+                       "recipe": recipe_launches["flash_aam_bwd"]},
                       bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"))]
     emit({"kernels": kernels})
     print(smi_line, flush=True)

@@ -9,9 +9,18 @@ obvious counterpart, and it imports neither JAX nor anything of ``pkr_tpu``:
                               the speaker model with softmax/AAM heads
 - ``pkr_tpu_torch.ops``       stats pooling, the dense AAM head and the
                               flash AAM head with its CUDA kernels
+- ``pkr_tpu_torch.io``        Kaldi ark/scp (CM codec, native reader), wavs,
+                              data directories
+- ``pkr_tpu_torch.data``      samplers, host loaders, the card-resident
+                              quantized feature cache, speed perturbation
 - ``pkr_tpu_torch.train``     train state and SGD, the train and eval steps
-                              (dense and flash heads), the epoch loop
-- ``pkr_tpu_torch.eval``      extraction, cosine scoring, EER/minDCF
+                              (dense and flash heads), the epoch loop,
+                              checkpoints with resume and warm starts
+- ``pkr_tpu_torch.eval``      extraction, cosine scoring, cohort S-norm,
+                              LDA/PLDA, trial files, EER/minDCF
+- ``pkr_tpu_torch.config``    the typed Config tree (JSON in and out)
+- ``pkr_tpu_torch.recipes``   presets, corpus builders and the stage-gated
+                              CLI ``python -m pkr_tpu_torch.recipes.run``
 - ``pkr_tpu_torch.utils``     training meters, progress logging, profiling
 - ``pkr_tpu_torch.convert``   flax variables (and a mid-training
                               ``TrainState``) → the port's state dict

@@ -8,11 +8,13 @@ nothing of ``pkr_tpu``):
   min_t (c_miss·fnr·p + c_fa·fpr·(1-p)) / min(c_miss·p, c_fa·(1-p)),
   first-minimum threshold.
 Float64 accumulators, so the arithmetic matches python floats exactly.
+``python -m pkr_tpu_torch.eval.metrics [--p-target P] <scores> <trials>``
+prints what scripts/compute_eer.py / local/compute_min_dcf.py print.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -58,3 +60,52 @@ def compute_min_dcf(scores: Sequence[float], labels: Sequence[int],
     i = int(np.argmin(c_det))  # np.argmin returns the first minimum
     c_def = min(c_miss * p_target, c_fa * (1.0 - p_target))
     return float(c_det[i] / c_def), float(thresholds[i])
+
+
+def scores_and_labels_from_files(score_path: str, trials_path: str
+                                 ) -> Tuple[List[float], List[int]]:
+    """Join a '<utt1> <utt2> <score>' file against a
+    '<utt1> <utt2> target|nontarget' trials file (compute_eer.py:72-97
+    semantics: every score line must have a trial entry)."""
+    trials: Dict[str, str] = {}
+    for line in open(trials_path):
+        u1, u2, t = line.split()
+        trials[u1 + " " + u2] = t
+    scores, labels = [], []
+    for line in open(score_path):
+        u1, u2, s = line.split()
+        key = u1 + " " + u2
+        if key not in trials:
+            raise KeyError(f"Missing trial entry for {key}")
+        scores.append(float(s))
+        labels.append(1 if trials[key] == "target" else 0)
+    return scores, labels
+
+
+def _cli(argv=None):
+    """CLI parity with scripts/compute_eer.py / local/compute_min_dcf.py:
+    `python -m pkr_tpu_torch.eval.metrics [--p-target P] <scores> <trials>`."""
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(description="EER / minDCF from score+trial files")
+    ap.add_argument("--p-target", type=float, default=None,
+                    help="report minDCF at this prior instead of EER")
+    ap.add_argument("--c-miss", type=float, default=1.0)
+    ap.add_argument("--c-fa", type=float, default=1.0)
+    ap.add_argument("scores")
+    ap.add_argument("trials")
+    args = ap.parse_args(argv)
+    scores, labels = scores_and_labels_from_files(args.scores, args.trials)
+    if args.p_target is None:
+        eer = compute_eer(scores, labels)
+        sys.stdout.write(f"{eer:.2%}\n")
+    else:
+        mindcf, thr = compute_min_dcf(scores, labels, args.p_target,
+                                      args.c_miss, args.c_fa)
+        sys.stdout.write(f"{mindcf:.4f}\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_cli())

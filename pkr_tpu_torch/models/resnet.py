@@ -4,7 +4,8 @@ Port of ``pkr_tpu/models/resnet.py``:
 - stem: 3x3 stride-1 conv to 32 channels + BN + ReLU (no max-pool),
 - stages 32/64/128/256 with strides 1/2/2/2, BasicBlock with expansion 1,
 - 1x1-conv+BN downsample on a shape change,
-- Kaiming-normal(fan_out) conv init, BN γ=1 β=0, eps 1e-5.
+- Kaiming-normal(fan_out) conv init (drawn from ``generator`` when one is
+  given), BN γ=1 β=0, eps 1e-5.
 
 Layout: the input (B, F, T) becomes (B, 1, H=F, W=T).  Every conv pads
 (k-1)//2 on each side, which is the reference's "SAME" at stride 1 and its
@@ -35,9 +36,11 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _conv(cin: int, cout: int, k: int, stride: int) -> nn.Conv2d:
+def _conv(cin: int, cout: int, k: int, stride: int,
+          generator: Optional[torch.Generator] = None) -> nn.Conv2d:
     conv = nn.Conv2d(cin, cout, k, stride, padding=(k - 1) // 2, bias=False)
-    nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
+    nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu",
+                            generator=generator)
     return conv
 
 
@@ -110,16 +113,17 @@ def zero_time_pad(x: torch.Tensor, n_valid: Optional[torch.Tensor]) -> torch.Ten
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, stride: int = 1,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stride = stride
-        self.conv1 = _conv(cin, cout, 3, stride)
+        self.conv1 = _conv(cin, cout, 3, stride, generator)
         self.bn1 = BatchNorm(cout)
-        self.conv2 = _conv(cout, cout, 3, 1)
+        self.conv2 = _conv(cout, cout, 3, 1, generator)
         self.bn2 = BatchNorm(cout)
         self.downsample = None
         if stride != 1 or cin != cout:
-            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride),
+            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride, generator),
                                             BatchNorm(cout))
 
     def forward(self, x: torch.Tensor,
@@ -137,18 +141,20 @@ class BasicBlock(nn.Module):
 class ResNet(nn.Module):
     """Speaker-verification ResNet trunk; returns the (B, C, F/8, T/8) map."""
 
-    def __init__(self, stage_sizes: Sequence[int], base_width: int = 32):
+    def __init__(self, stage_sizes: Sequence[int], base_width: int = 32,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.base_width = base_width
-        self.conv1 = _conv(1, base_width, 3, 1)
+        self.conv1 = _conv(1, base_width, 3, 1, generator)
         self.bn1 = BatchNorm(base_width)
         cin = base_width
         for i, n_blocks in enumerate(self.stage_sizes):
             cout = base_width * (2 ** i)
             blocks = []
             for j in range(n_blocks):
-                blocks.append(BasicBlock(cin, cout, 2 if (i > 0 and j == 0) else 1))
+                blocks.append(BasicBlock(cin, cout, 2 if (i > 0 and j == 0) else 1,
+                                         generator))
                 cin = cout
             setattr(self, f"layer{i + 1}", nn.ModuleList(blocks))
         self.out_channels = cin

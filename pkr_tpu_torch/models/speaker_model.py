@@ -8,7 +8,9 @@ Port of ``pkr_tpu/models/speaker_model.py`` (reference NeuralSpeakerModel):
   (bn1 + ReLU, then the margin head),
 - ``embed`` = trunk + pool + flatten + fc1, the reference's ``predict``.
 
-``dtype`` is the trunk's compute type: bf16 runs the convolutions under
+The weights are drawn on the host, from ``generator`` (a CPU
+``torch.Generator``) when one is given, so a seed gives the same weights on
+every device.  ``dtype`` is the trunk's compute type: bf16 runs the convolutions under
 autocast (the speed path on the card), float32 runs them in full f32 with
 TF32 off (the parity path).  Pooling and everything after it stay f32.
 
@@ -42,16 +44,17 @@ TRUNKS = {
 class AAMWeight(nn.Module):
     """The AAM classifier weight, (spk_num, emb_dim), as ``last.weight``."""
 
-    def __init__(self, spk_num: int, emb_dim: int):
+    def __init__(self, spk_num: int, emb_dim: int,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(spk_num, emb_dim))
-        nn.init.xavier_normal_(self.weight)
+        nn.init.xavier_normal_(self.weight, generator=generator)
 
 
-def _dense(cin: int, cout: int) -> nn.Linear:
+def _dense(cin: int, cout: int, generator: Optional[torch.Generator] = None) -> nn.Linear:
     """Linear with the reference's flax Dense init (lecun normal, zero bias)."""
     lin = nn.Linear(cin, cout)
-    nn.init.normal_(lin.weight, std=1.0 / math.sqrt(cin))
+    nn.init.normal_(lin.weight, std=1.0 / math.sqrt(cin), generator=generator)
     nn.init.zeros_(lin.bias)
     return lin
 
@@ -60,7 +63,8 @@ class SpeakerModel(nn.Module):
     def __init__(self, spk_num: int, feat_dim: int = 40, pooling: str = "mean+std",
                  loss: str = "softmax", m: float = 0.2, s: float = 30.0,
                  trunk: str = "resnet34", emb_dim: int = 256,
-                 dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None):
+                 dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if trunk not in TRUNKS:
             raise ValueError(f"unknown trunk {trunk!r} (choose from {sorted(TRUNKS)})")
@@ -73,15 +77,16 @@ class SpeakerModel(nn.Module):
         self.spk_num, self.feat_dim, self.pooling = spk_num, feat_dim, pooling
         self.loss, self.m, self.s = loss, m, s
         self.trunk, self.emb_dim, self.dtype = trunk, emb_dim, dtype
-        self.res = TRUNKS[trunk]()
+        self.res = TRUNKS[trunk](generator=generator)
         n_stats = 2 if pooling == "mean+std" else 1
-        self.fc1 = _dense(self.res.out_channels * n_stats * ((feat_dim + 7) // 8), emb_dim)
+        self.fc1 = _dense(self.res.out_channels * n_stats * ((feat_dim + 7) // 8), emb_dim,
+                          generator)
         if loss in ("softmax", "AAM-v1"):
             self.bn1 = _resnet.BatchNorm(emb_dim)
         if loss == "softmax":
-            self.last = _dense(emb_dim, spk_num)
+            self.last = _dense(emb_dim, spk_num, generator)
         else:
-            self.last = AAMWeight(spk_num, emb_dim)
+            self.last = AAMWeight(spk_num, emb_dim, generator)
         self.to(resolve_device(device))
         self.eval()
 

@@ -1,5 +1,5 @@
 """Training engine of the port: state, optimizer, train and eval steps, the
-epoch loop."""
+epoch loop, checkpoints."""
 
 from pkr_tpu_torch.train.state import TrainState, cosine_epoch_lr, create_train_state
 from pkr_tpu_torch.train.loop import (
@@ -8,6 +8,13 @@ from pkr_tpu_torch.train.loop import (
     make_train_step,
     topk_correct,
     train_and_validate,
+)
+from pkr_tpu_torch.train.checkpoint import (
+    import_torch_checkpoint,
+    load_pretrained,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
 )
 
 __all__ = [
@@ -19,4 +26,9 @@ __all__ = [
     "make_train_step",
     "topk_correct",
     "train_and_validate",
+    "import_torch_checkpoint",
+    "load_pretrained",
+    "restore_checkpoint",
+    "save_checkpoint",
+    "wait_for_checkpoints",
 ]
