@@ -65,12 +65,38 @@ Phases, one JSON line each:
           save/best-save/restore ms and bytes, extraction
           utterances/s, cohort top-k ms, scoring s and EER/minDCF per
           backend;
+  augment waveform augmentation on the card (launching neither kernel), at
+          the recipe's pool sizes with synthetic audio made in memory from a
+          seed: noise, music and speech pools of 349 12-s recordings each
+          (pool_shard_mb 256), 4096 one-second RIRs in 64 rooms plus the
+          delta row, 64 six-second point noises and isotropic noises; one
+          128 x 6-s batch per kind (clean, noise, music, babble, reverb
+          RIR-only as run.sh:109-110, reverb composed with room-convolved
+          noises at 40 noises a minute) and a mixed draw.  Gates: clean rows
+          bit-identical; noise and music rows at their plan's SNR within
+          0.01 dB; delta-RIR rows equal to the signal within 1e-5 of its
+          peak; RIR-only rows keep their energy within 1e-4; 8 rows per kind
+          equal to the port's same code on the CPU, with the same plans,
+          within 1e-4 of their peak; a 12-s bucket makes the tile LRU evict
+          within its 2 GiB budget; a set_pool swap drops the kind's tiles.
+          Then the recipe with augmentation: prep augment --speed over the
+          recipe phase's 512 wavs (3072 utterances), a MUSAN tree and a
+          RIRS_NOISES tree written as wavs, and main --stage 0 --stop-stage
+          1 --musan-dir --rir-dir on the card with 5-recording pool shards
+          rotating every 256 rows.  Gates: every utterance has features,
+          every augmented copy's differ from its source's, the speed copies'
+          frame counts follow n/0.9 and n/1.1, the rotation record shows a
+          rotation and no error.  Prints device, wall, plan-draw and host
+          ms per batch and kind, augmented utterances/s, the pools' and tiles' bytes on the
+          card, and stage-1 utterances/s beside the recipe phase's clean
+          rate;
   kernels every kernel with its launches on the paths and its errors.
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
 or outside a checkout, it fails at once and prints no result.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -1286,6 +1312,28 @@ def _check_scores(exp, n_trials, backend):
     return res
 
 
+def write_wav_data(root):
+    """The recipe's stage-1 input: a data dir of RECIPE_WAVS synthetic 6-s
+    wavs of RECIPE_WAV_SPK speakers under root/wav_data; returns (its path,
+    utt2spk)."""
+    from pkr_tpu_torch.io import DataDir
+    from pkr_tpu_torch.io.wav import write_wav
+
+    wav_root = os.path.join(root, "wavs")
+    os.makedirs(wav_root)
+    wavs, _ = make_wavs(RECIPE_WAVS, seed=3)
+    utt2spk, wav_scp = {}, {}
+    for i in range(RECIPE_WAVS):
+        spk = f"w{i % RECIPE_WAV_SPK:03d}"
+        utt = f"{spk}-{i // RECIPE_WAV_SPK}"
+        path = os.path.join(wav_root, f"{utt}.wav")
+        write_wav(path, wavs[i])
+        utt2spk[utt], wav_scp[utt] = spk, path
+    wav_data = os.path.join(root, "wav_data")
+    DataDir({"utt2spk": utt2spk, "wav.scp": wav_scp}).make_spk2utt().save(wav_data)
+    return wav_data, utt2spk
+
+
 def phase_recipe(torch, smi_line):
     """The recipe CLI, python -m pkr_tpu_torch.recipes.run, through its main
     on the card (no --device: the default is the card).  The recipe's own
@@ -1306,7 +1354,6 @@ def _recipe_runs(torch, smi_line, root, log):
 
     from pkr_tpu_torch.eval.scoring import cohort_topk_stats
     from pkr_tpu_torch.io import DataDir, kaldi_ark, load_text_vec_ark
-    from pkr_tpu_torch.io.wav import write_wav
     from pkr_tpu_torch.ops import flash_aam as fa
     from pkr_tpu_torch.recipes import voxceleb
     from pkr_tpu_torch.recipes.presets import PRESETS
@@ -1316,19 +1363,7 @@ def _recipe_runs(torch, smi_line, root, log):
     dev = torch.device("cuda")
     j = os.path.join
     # --- inputs, made before the main path ---
-    wav_root = j(root, "wavs")
-    os.makedirs(wav_root)
-    wavs, _ = make_wavs(RECIPE_WAVS, seed=3)
-    utt2spk, wav_scp = {}, {}
-    for i in range(RECIPE_WAVS):
-        spk = f"w{i % RECIPE_WAV_SPK:03d}"
-        utt = f"{spk}-{i // RECIPE_WAV_SPK}"
-        path = j(wav_root, f"{utt}.wav")
-        write_wav(path, wavs[i])
-        utt2spk[utt], wav_scp[utt] = spk, path
-    del wavs
-    wav_data = j(root, "wav_data")
-    DataDir({"utt2spk": utt2spk, "wav.scp": wav_scp}).make_spk2utt().save(wav_data)
+    wav_data, utt2spk = write_wav_data(root)
 
     corpus = j(root, "corpus")
     os.makedirs(corpus)
@@ -1503,7 +1538,453 @@ def _recipe_runs(torch, smi_line, root, log):
                                 "cosine": st_score["cosine"][6]},
           "n_trials": len(trials), "n_target": n_target, "results": res,
           "card": smi_line})
-    return launches
+    return launches, RECIPE_WAVS / st1[1]
+
+
+# --- phase augment ----------------------------------------------------------
+
+AUG_B = 128
+AUG_POOL_L = int(12 * RATE)                   # DataConfig.pool_len_sec = 12
+AUG_POOL_K = (256 << 20) // (AUG_POOL_L * 4)  # pool_shard_mb = 256: 349 recordings
+AUG_RIRS = 4096                               # ReverbPlanner's max_rirs
+AUG_ROOMS = 64                                # over two sets, 64 RIRs a room
+AUG_RVB_NOISES = 64                           # 6-s point noises, half foreground
+AUG_ISO_ROOMS = 4                             # rooms with an isotropic noise
+AUG_CHECK_ROWS = 8                            # rows held against the CPU
+AUG_LONG = 2 * N_SAMPLES                      # the second bucket length (12 s)
+AUG_SNR_DB = 0.01
+AUG_RUNS = ("clean", "noise", "music", "babble", "reverb_rir", "reverb_composed", "mixed")
+MUSAN_RECORDINGS = 12
+RIRS_PER_SET = 32
+AUG_SHARD_MB = 4            # 5 12-s recordings a shard: fewer than a kind has
+AUG_ROTATE_ROWS = 256
+
+
+def _aug_pools(rng):
+    """MUSAN-sized pools made in memory, AUG_POOL_K recordings a kind, 4-12 s
+    long, zero-padded to 12 s: white noise; music as two harmonic tones;
+    speech as a syllable-modulated 'voice' plus breath noise."""
+    K, L = AUG_POOL_K, AUG_POOL_L
+    t = (np.arange(L, dtype=np.float32) / RATE)[None, :]
+    pools = {}
+    for kind in ("noise", "music", "speech"):
+        lens = rng.integers(L // 3, L + 1, size=K)
+        if kind == "noise":
+            mats = rng.standard_normal((K, L), dtype=np.float32) * 600
+        else:
+            f0 = rng.uniform(80, 400, size=(K, 1)).astype(np.float32)
+            mats = np.sin(2 * np.pi * f0 * t) * 1500
+            if kind == "music":
+                mats += np.sin(2 * np.pi * 1.5 * f0 * t) * 800
+            else:
+                mats *= 0.5 + 0.5 * np.sin(2 * np.pi * 4.0 * t)
+            mats += rng.standard_normal((K, L), dtype=np.float32) * 100
+        mats *= np.arange(L)[None, :] < lens[:, None]
+        pools[kind] = (mats, lens)
+    return pools
+
+
+def _aug_rirs(rng):
+    """AUG_RIRS one-second RIRs in AUG_ROOMS rooms (each room its decay
+    time), each a direct-path peak of 1 at a random delay and a decaying
+    noise tail below it, some shorter than the padded second; then the
+    trailing delta row, as AugmentPools.attach_rir_set appends it."""
+    K, L = AUG_RIRS, RATE
+    room = np.arange(K) // (K // AUG_ROOMS)
+    tau = (0.02 + 0.15 * room / AUG_ROOMS) * RATE
+    delay = rng.integers(8, 400, size=K)
+    lens = rng.integers(L // 2, L + 1, size=K)
+    ar = np.arange(L)[None, :]
+    tail = np.clip(0.3 * rng.standard_normal((K, L), dtype=np.float32), -0.9, 0.9)
+    mats = (tail * np.exp(-np.maximum(ar - delay[:, None], 0) / tau[:, None])
+            * (ar > delay[:, None]) * (ar < lens[:, None])).astype(np.float32)
+    mats[np.arange(K), delay] = 1.0
+    delta = np.zeros((1, L), np.float32)
+    delta[0, 0] = 1.0
+    return (np.concatenate([mats, delta]), np.concatenate([lens, [1]]).astype(np.int64),
+            room)
+
+
+def _aug_planners(room):
+    """The RIR-only planner of the recipe (run.sh:109-110: every utterance
+    reverberated, no noise) and a composed one: point-source noises
+    room-convolved, isotropic noises in AUG_ISO_ROOMS rooms, fg/bg SNR
+    cycles, speech reverberated 3 times in 4 so that some rows stay dry
+    (the delta RIR).  40 noises a minute give a 6-s utterance up to 4 (at
+    the default of 1 it draws none)."""
+    from pkr_tpu_torch.recipes import rir as rr
+
+    def entries():
+        out = []
+        for name, rooms in (("small", range(AUG_ROOMS // 2)),
+                            ("medium", range(AUG_ROOMS // 2, AUG_ROOMS))):
+            cur = [rr.RirEntry(f"{name}{i:05d}", f"room{room[i]:02d}", "")
+                   for i in range(len(room)) if room[i] in rooms]
+            out += rr.smooth_probabilities(cur, target_sum=0.5)
+        return out
+
+    point = rr.smooth_probabilities(
+        [rr.NoiseEntry(f"pn{i:02d}", "point-source", "",
+                       bg_fg_type="foreground" if i % 2 else "background")
+         for i in range(AUG_RVB_NOISES)])
+    iso = {f"room{r:02d}": rr.smooth_probabilities(
+        [rr.NoiseEntry(f"iso{r:02d}", "isotropic", "", room_linkage=f"room{r:02d}")])
+        for r in range(AUG_ISO_ROOMS)}
+    plain = rr.ReverbPlanner(entries(), seed=1)
+    composed = rr.ReverbPlanner(entries(), point, iso, foreground_snrs=(20, 10, 15, 5, 0),
+                                background_snrs=(20, 10, 15, 5, 0),
+                                speech_rvb_probability=0.75,
+                                pointsource_noise_addition_probability=0.5,
+                                isotropic_noise_addition_probability=0.5,
+                                max_noises_per_minute=40, seed=2)
+    return plain, composed
+
+
+def _replay_plan(cpu_aug, state, kinds, lengths):
+    """The plan a call drew: the CPU twin takes the card augmenter's rng and
+    planner as they were before the call and draws the same codes and plan
+    (WavAugmenter.__call__'s draw order)."""
+    cpu_aug.rng, cpu_aug.reverb_planner = copy.deepcopy(state)
+    names = cpu_aug.kinds()
+    if kinds is None:
+        draw = cpu_aug.rng.integers(0, len(names) + 1, size=len(lengths))
+        codes = np.where(draw == len(names), 0, draw + 1).astype(np.int32)
+    else:
+        codes = np.asarray([names.index(k) + 1 if k in names else 0 for k in kinds], np.int32)
+    return names, codes, cpu_aug._draw_plan(codes, names, lengths)
+
+
+def _host_split(torch, aug, fn, iters):
+    """Mean ms of one call's plan draws (`_draw_plan`, the planner's draws
+    included) and of its whole host side (until the call returns, its
+    launches queued), over `iters` calls each started on an idle card."""
+    plan, host = [], []
+    draw = aug._draw_plan
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = draw(*args)
+        plan.append(time.perf_counter() - t0)
+        return out
+
+    aug._draw_plan = timed
+    try:
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    finally:
+        del aug._draw_plan
+    return 1e3 * sum(plan) / iters, 1e3 * sum(host) / iters
+
+
+def _check_tiles(torch, aug):
+    budget = aug.tile_budget_bytes
+    held = sum(t.numel() * t.element_size() for t in aug._tiled.values())
+    check(aug._tiled_bytes == held <= budget
+          and all(t.device.type == aug.device.type for t in aug._tiled.values()),
+          f"tiles: counted {aug._tiled_bytes} B, held {held} B, budget {budget} B")
+    return held
+
+
+def _aug_gates(torch, name, x, out, lengths, names, codes, plan):
+    """The run's gates; returns the rows checked per gate."""
+    xs = x.double().cpu().numpy()
+    os_ = out.double().cpu().numpy()
+    check(np.isfinite(os_).all(), f"{name}: non-finite rows")
+    counts = {"clean": 0, "snr": 0, "rir_energy": 0, "delta": 0, "noisy": 0}
+    src, _, snrs, _, _, _, n_src = plan
+    for r in range(len(codes)):
+        ln = int(lengths[r])
+        check(not os_[r, ln:].any(), f"{name}: row {r} has samples past its length")
+        kind = "none" if codes[r] == 0 else names[codes[r] - 1]
+        if kind == "none":
+            check(torch.equal(out[r], x[r]), f"{name}: clean row {r} changed")
+            counts["clean"] += 1
+        elif kind in ("noise", "music"):
+            added = os_[r, :ln] - xs[r, :ln]
+            snr = 10 * np.log10((xs[r, :ln] ** 2).sum() / (added ** 2).sum())
+            check(abs(snr - snrs[r, 0]) <= AUG_SNR_DB,
+                  f"{name}: row {r} at {snr:.5f} dB, its plan says {snrs[r, 0]}")
+            counts["snr"] += 1
+        elif kind == "reverb" and n_src[r] > 1:
+            counts["noisy"] += 1  # reverb with RIR-set noises: no closed form
+        elif kind == "reverb":
+            peak = np.abs(xs[r]).max()
+            if src[r, 0] == AUG_RIRS:  # the delta RIR
+                err = np.abs(os_[r] - xs[r]).max()
+                check(err <= 1e-5 * peak, f"{name}: delta row {r} off by {err / peak}")
+                counts["delta"] += 1
+            else:
+                ratio = (os_[r, :ln] ** 2).sum() / (xs[r, :ln] ** 2).sum()
+                check(abs(ratio - 1) <= 1e-4, f"{name}: row {r} wet/dry energy {ratio}")
+                counts["rir_energy"] += 1
+    return counts
+
+
+def _cpu_rows(torch, name, aug, cpu_aug, x, lengths, kinds):
+    """AUG_CHECK_ROWS rows on the card and through the port's same code on
+    the CPU with the same plans: each row within 1e-4 of its peak."""
+    k = AUG_CHECK_ROWS
+    kinds = None if kinds is None else kinds[:k]
+    state = copy.deepcopy((aug.rng, aug.reverb_planner))
+    card = aug(x[:k], lengths[:k], kinds=kinds, device_out=True).cpu().numpy()
+    cpu_aug.rng, cpu_aug.reverb_planner = state
+    cpu = cpu_aug(x[:k].cpu().numpy(), lengths[:k], kinds=kinds)
+    worst = 0.0
+    for r in range(k):
+        peak = max(float(np.abs(cpu[r]).max()), 1e-30)
+        worst = max(worst, float(np.abs(card[r] - cpu[r]).max()) / peak)
+    check(worst <= 1e-4, f"{name}: card vs CPU rows off by {worst} of their peak")
+    return worst
+
+
+def phase_augment(torch, smi_line, clean_stage1_per_s):
+    """Waveform augmentation on the card at the recipe's pool sizes, then
+    the recipe's stage 1 with augmentation pools; the recipe's prints are
+    written to stderr if the phase fails.  Launches neither flash kernel."""
+    import tempfile
+
+    log = _Stamped()
+    mixing = _augmenter_runs(torch, smi_line)
+    with tempfile.TemporaryDirectory(prefix="pkr_augment_") as root:
+        try:
+            recipe = _augmented_recipe(torch, smi_line, root, log)
+        except BaseException:
+            sys.stderr.write("\n".join(line for _, line in log.lines[-200:]) + "\n")
+            raise
+    recipe["clean_stage1_utterances_per_s"] = clean_stage1_per_s
+    emit({"phase": "augment", "augmenter": mixing, "recipe": recipe, "card": smi_line})
+
+
+def _augmenter_runs(torch, smi_line):
+    from pkr_tpu_torch.data.augment import WavAugmenter
+
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    pools = _aug_pools(rng)
+    rirs, rir_lens, room = _aug_rirs(rng)
+    plain, composed = _aug_planners(room)
+    rvb_lens = rng.integers(N_SAMPLES // 6, N_SAMPLES + 1, size=len(composed.noise_entries))
+    rvb = rng.standard_normal((len(rvb_lens), N_SAMPLES), dtype=np.float32) * 800
+    rvb *= np.arange(N_SAMPLES)[None, :] < rvb_lens[:, None]
+    wavs, _ = make_wavs(AUG_B, seed=4)
+    lengths = rng.integers(3 * N_SAMPLES // 4, N_SAMPLES + 1, size=AUG_B)
+    wavs *= np.arange(N_SAMPLES)[None, :] < lengths[:, None]
+    make_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mixers = {"aug": WavAugmenter(noise=pools["noise"], music=pools["music"],
+                                  speech=pools["speech"], rirs=(rirs, rir_lens),
+                                  reverb_planner=plain, seed=0),
+              "composed": WavAugmenter(rirs=(rirs, rir_lens), rvb_noise=(rvb, rvb_lens),
+                                       reverb_planner=composed, seed=1)}
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    pool_bytes = torch.cuda.memory_allocated() - mem0
+    # the port's same code on the CPU, over the same numpy pools; each check
+    # hands it the card augmenter's rng and planner as a call found them
+    twins = {"aug": WavAugmenter(noise=pools["noise"], music=pools["music"],
+                                 speech=pools["speech"], rirs=(rirs, rir_lens), device="cpu"),
+             "composed": WavAugmenter(rirs=(rirs, rir_lens), rvb_noise=(rvb, rvb_lens),
+                                      device="cpu")}
+    x = torch.as_tensor(wavs).cuda()
+    check(mixers["aug"].kinds() == ["noise", "music", "babble", "reverb"]
+          and mixers["composed"].kinds() == ["reverb"], "augmenter kinds")
+
+    runs = {}
+    for name in AUG_RUNS:
+        key = "composed" if name == "reverb_composed" else "aug"
+        aug, twin = mixers[key], twins[key]
+        kind = {"reverb_rir": "reverb", "reverb_composed": "reverb"}.get(name, name)
+        kinds = (None if name == "mixed" else
+                 ["none" if kind == "clean" or r % 8 == 7 else kind for r in range(AUG_B)])
+        state = copy.deepcopy((aug.rng, aug.reverb_planner))
+        t0 = time.perf_counter()
+        out = aug(x, lengths, kinds=kinds, device_out=True)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        names, codes, plan = _replay_plan(twin, state, kinds, lengths)
+        counts = _aug_gates(torch, name, x, out, lengths, names, codes, plan)
+        cpu_err = _cpu_rows(torch, name, aug, twin, x, lengths, kinds)
+        fn = lambda: aug(x, lengths, kinds=kinds, device_out=True)  # noqa: E731
+        dev_ms, n_act, top = device_ms(torch, fn, 3)
+        wall = call_ms(torch, fn, 5, warmup=1)
+        plan_ms, host_ms = _host_split(torch, aug, fn, 5)
+        n_aug = int((codes != 0).sum())
+        runs[name] = {"device_ms": dev_ms, "wall_ms": wall, "plan_ms": plan_ms,
+                      "host_ms": host_ms, "first_call_ms": first_ms,
+                      "activities": n_act, "top": top, "rows": AUG_B,
+                      "augmented_rows": n_aug,
+                      "augmented_utterances_per_s": 1e3 * n_aug / wall,
+                      "rows_per_s": 1e3 * AUG_B / wall,
+                      "checked": counts, "cpu_max_rel_err": cpu_err}
+        _check_tiles(torch, aug)
+    check(runs["noise"]["checked"]["snr"] > 0 and runs["music"]["checked"]["snr"] > 0
+          and runs["reverb_rir"]["checked"]["rir_energy"] > 0
+          and runs["reverb_composed"]["checked"]["delta"] > 0
+          and runs["reverb_composed"]["checked"]["noisy"] > 0
+          and runs["clean"]["checked"]["clean"] == AUG_B
+          and sum(runs["mixed"]["checked"].values()) > 0,
+          f"a gate saw no row: {[(k, v['checked']) for k, v in runs.items()]}")
+
+    # a second bucket length: the byte-accounted LRU evicts 6-s tiles
+    aug = mixers["aug"]
+    tiles_6s = _check_tiles(torch, aug)
+    keys_6s = list(aug._tiled)
+    x12 = torch.cat([x, x], dim=1)
+    lengths12 = lengths + N_SAMPLES
+    t0 = time.perf_counter()
+    out12 = aug(x12, lengths12, device_out=True)
+    torch.cuda.synchronize()
+    long_ms = 1e3 * (time.perf_counter() - t0)
+    check(bool(torch.isfinite(out12).all()), "12-s bucket: non-finite rows")
+    tiles_12s = _check_tiles(torch, aug)
+    keys_12s = list(aug._tiled)
+    evicted = [k for k in keys_6s if k not in keys_12s]
+    check(len(evicted) > 0 and any(k[1] == AUG_LONG for k in aug._tiled),
+          f"no eviction at n = {AUG_LONG}: {list(aug._tiled)}")
+    # a shard swap drops the kind's tiles; the next noise batch tiles anew
+    before = aug._tiled_bytes
+    noise_tiles = [k for k in aug._tiled if k[0] == "noise"]
+    aug.set_pool("noise", pools["music"])
+    check(not any(k[0] == "noise" for k in aug._tiled)
+          and aug._tiled_bytes == before - sum(aug._tile_cost("noise", k[1])
+                                               for k in noise_tiles),
+          "set_pool kept the kind's tiles")
+    _check_tiles(torch, aug)
+    aug(x, lengths, kinds=["noise"] * AUG_B, device_out=True)
+    torch.cuda.synchronize()
+    check(("noise", N_SAMPLES) in aug._tiled, "no noise tile after the swap")
+    _check_tiles(torch, aug)
+    return {"pool": {"K": AUG_POOL_K, "L": AUG_POOL_L, "rirs": AUG_RIRS + 1,
+                     "rvb_noises": len(rvb_lens), "make_seconds": make_s,
+                     "upload_seconds": upload_s, "bytes_on_card": pool_bytes},
+            "tiles": {"bytes_6s": tiles_6s, "bytes_after_12s": tiles_12s,
+                      "budget": aug.tile_budget_bytes, "evicted": evicted,
+                      "after_12s": [list(k) for k in keys_12s],
+                      "batch_12s_first_call_ms": long_ms,
+                      "noise_tiles_dropped_by_set_pool": [list(k) for k in noise_tiles]},
+            "composed_cap_hits": composed.cap_hits, "runs": runs,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _write_musan(root, rng):
+    """A MUSAN-style tree of MUSAN_RECORDINGS 8-14 s recordings a kind;
+    music/ has an ANNOTATIONS file marking one vocal track, which
+    make_musan leaves out."""
+    from pkr_tpu_torch.io.wav import write_wav
+
+    for kind in ("noise", "music", "speech"):
+        d = os.path.join(root, kind, "synth")
+        os.makedirs(d)
+        for i in range(MUSAN_RECORDINGS):
+            n = int(rng.integers(8 * RATE, 14 * RATE))
+            write_wav(os.path.join(d, f"{kind}-synth-{i:04d}.wav"),
+                      rng.standard_normal(n) * (300 + 100 * i))
+    with open(os.path.join(root, "music", "synth", "ANNOTATIONS"), "w") as f:
+        f.write("music-synth-0000 pop Y singer\nmusic-synth-0001 jazz N band\n")
+
+
+def _write_rirs_noises(root, rng):
+    """A RIRS_NOISES-style tree: simulated_rirs/{smallroom,mediumroom} with
+    RIRS_PER_SET one-second RIR wavs each over four rooms, and their
+    rir_list files (paths relative to the tree's parent, as the corpus has
+    them)."""
+    from pkr_tpu_torch.io.wav import write_wav
+
+    base = os.path.basename(root)
+    for set_i, name in enumerate(("smallroom", "mediumroom")):
+        lines = []
+        for i in range(RIRS_PER_SET):
+            room = f"Room{4 * set_i + i % 4:03d}"
+            rel = f"{base}/simulated_rirs/{name}/{room}/{name}-{i:05d}.wav"
+            os.makedirs(os.path.dirname(os.path.join(os.path.dirname(root), rel)),
+                        exist_ok=True)
+            d = int(rng.integers(8, 300))
+            t = np.arange(RATE)
+            rir = np.clip(0.3 * rng.standard_normal(RATE), -0.9, 0.9) * np.exp(
+                -np.maximum(t - d, 0) / ((0.05 + 0.1 * set_i) * RATE)) * (t > d)
+            rir[d] = 1.0
+            write_wav(os.path.join(os.path.dirname(root), rel), rir * 8000)
+            lines.append(f"--rir-id {name}-{i:05d} --room-id {name}-{room} {rel}")
+        with open(os.path.join(root, "simulated_rirs", name, "rir_list"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def _augmented_recipe(torch, smi_line, root, log):
+    import dataclasses
+
+    from pkr_tpu_torch.io import DataDir, kaldi_ark
+    from pkr_tpu_torch.recipes.presets import PRESETS
+    from pkr_tpu_torch.recipes.voxceleb import make_musan
+
+    j = os.path.join
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    wav_data, utt2spk = write_wav_data(root)
+    musan, rirs = j(root, "musan"), j(root, "RIRS_NOISES")
+    _write_musan(musan, rng)
+    _write_rirs_noises(rirs, rng)
+    check({k: dd.num_utts for k, dd in make_musan(musan).items()}
+          == {"music": MUSAN_RECORDINGS - 1, "speech": MUSAN_RECORDINGS,
+              "noise": MUSAN_RECORDINGS}, "make_musan did not skip the vocal track")
+    aug_dir = j(root, "wav_data_aug")
+    prep = subprocess.run([sys.executable, "-m", "pkr_tpu_torch.recipes.prep", "augment",
+                           "--speed", wav_data, aug_dir], cwd=ROOT, capture_output=True,
+                          text=True, env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
+    check(prep.returncode == 0, f"prep augment: {prep.stderr[-2000:]}")
+    dd = DataDir.load(aug_dir)
+    n_utts = 6 * RECIPE_WAVS
+    check(dd.num_utts == n_utts, f"prep augment gave {dd.num_utts} utterances")
+    cfg = PRESETS["aam_v2"]()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, pool_shard_mb=AUG_SHARD_MB, pool_rotate_rows=AUG_ROTATE_ROWS))
+    check(cfg.data.augment and (AUG_SHARD_MB << 20) // (int(cfg.data.pool_len_sec * RATE) * 4)
+          < MUSAN_RECORDINGS - 1, "the config would not rotate its shards")
+    cfg_path = j(root, "aug.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    write_s = time.perf_counter() - t0
+
+    exp = j(root, "exp_aug")
+    t0 = time.perf_counter()
+    st = _run_main(["--config", cfg_path, "--stage", "0", "--stop-stage", "1",
+                    "--data-dir", aug_dir, "--exp-dir", exp, "--musan-dir", musan,
+                    "--rir-dir", rirs], log)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+
+    feat_dir = j(exp, "feats")
+    feats = dict(kaldi_ark.read_mat_scp(j(feat_dir, "feats.scp")))
+    check(sorted(feats) == sorted(dd.utts)
+          and all(len(m) > 0 and np.isfinite(m).all() for m in feats.values()),
+          "stage 1 left utterances out, kept no frame or wrote non-finite values")
+    n_aug = 0
+    for utt, kind in dd["utt2aug"].items():
+        if kind != "none":
+            clean = feats[utt.rsplit("-", 1)[0]]
+            n = min(len(clean), len(feats[utt]))
+            diff = float(np.abs(feats[utt][:n] - clean[:n]).max())
+            check(diff > 0.01, f"{utt}: features equal its clean source's ({diff})")
+            n_aug += 1
+    check(n_aug == n_utts // 2, f"{n_aug} augmented copies")
+    vad = {u: len(v) for u, v in kaldi_ark.read_vec_flt_scp(j(feat_dir, "vad.scp"))}
+    for utt in utt2spk:
+        for f in (0.9, 1.1):
+            got, want = vad[f"sp{f}-{utt}"], vad[utt] / f
+            check(abs(got - want) <= 2, f"sp{f}-{utt}: {got} frames, n/{f} = {want:.1f}")
+    rec = _jsonl(j(feat_dir, "stage1_metrics.jsonl"))
+    check(len(rec) == 1 and rec[0]["pool_rotations_done"] >= 1
+          and rec[0]["pool_rotation_errors"] == 0, f"stage-1 rotation record {rec}")
+    return {"utterances": n_utts, "augmented": n_aug, "musan_recordings": MUSAN_RECORDINGS,
+            "rirs": 2 * RIRS_PER_SET, "write_seconds": write_s, "path_seconds": path_s,
+            "stage1_seconds": st.get(1), "stage1_utterances_per_s": n_utts / st[1],
+            "rotation": rec[0]}
 
 
 def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys):
@@ -1542,7 +2023,8 @@ def main():
         launches = phase_slice(torch, smi_line)
         train_launches = phase_train(torch, smi_line)
         corpus_launches = phase_corpus(torch, smi_line)
-        recipe_launches = phase_recipe(torch, smi_line)
+        recipe_launches, clean_stage1_per_s = phase_recipe(torch, smi_line)
+        phase_augment(torch, smi_line, clean_stage1_per_s)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

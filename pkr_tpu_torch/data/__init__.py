@@ -1,6 +1,6 @@
-"""Host-side input pipeline (balanced samplers, chunking, prefetch) and the
-card-resident quantized feature cache.  Augmentation and the sharded cache
-are not ported yet."""
+"""Host-side input pipeline (balanced samplers, chunking, prefetch), the
+card-resident quantized feature cache, and waveform augmentation on the
+card (``data.augment``).  The sharded cache is not ported yet."""
 
 from pkr_tpu_torch.data.sampler import (
     BalancedRepetitionSampler,

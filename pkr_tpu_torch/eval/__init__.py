@@ -1,6 +1,6 @@
 """Evaluation backend of the port: extraction, scoring (cosine, cohort
-S-norm), trial files, LDA/PLDA, EER/minDCF.  ``eval/visualize.py`` is not
-ported yet."""
+S-norm), trial files, LDA/PLDA, EER/minDCF, and the embedding diagnostics
+(range report, PCA/t-SNE projections, speaker scatter plots)."""
 
 from pkr_tpu_torch.eval.metrics import compute_error_rates, compute_eer, compute_min_dcf
 from pkr_tpu_torch.eval.scoring import (
@@ -22,6 +22,13 @@ from pkr_tpu_torch.eval.plda import (
     train_plda,
 )
 from pkr_tpu_torch.eval.extract import extract_embeddings, make_embed_fn
+from pkr_tpu_torch.eval.visualize import (
+    embedding_stats,
+    pca_project,
+    plot_embeddings,
+    speaker_embeddings,
+    tsne_project,
+)
 
 __all__ = [
     "compute_error_rates",
@@ -43,4 +50,9 @@ __all__ = [
     "train_plda",
     "extract_embeddings",
     "make_embed_fn",
+    "embedding_stats",
+    "pca_project",
+    "plot_embeddings",
+    "speaker_embeddings",
+    "tsne_project",
 ]

@@ -1,11 +1,11 @@
-"""Feature pipeline on the card: wav → fbank → VAD → sliding CMVN.
-
-The MFCC path of ``pkr_tpu.frontend`` is not ported yet."""
+"""Feature pipeline on the card: wav → fbank (or MFCC) → VAD → sliding CMVN."""
 
 from pkr_tpu_torch.frontend.features import (
     FbankConfig,
+    MfccConfig,
     frame_signal,
     fbank,
+    mfcc,
     num_frames,
     mel_banks,
 )
@@ -15,10 +15,12 @@ from pkr_tpu_torch.frontend.pipeline import FrontendConfig, wav_to_train_feats
 
 __all__ = [
     "FbankConfig",
+    "MfccConfig",
     "VadConfig",
     "FrontendConfig",
     "frame_signal",
     "fbank",
+    "mfcc",
     "num_frames",
     "mel_banks",
     "energy_vad",

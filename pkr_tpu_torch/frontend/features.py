@@ -1,4 +1,5 @@
-"""Kaldi-compatible log-mel filterbank as three f32 matmuls on the card.
+"""Kaldi-compatible log-mel filterbank as three f32 matmuls on the card, and
+MFCC as one more (the DCT of the log-mels).
 
 Port of ``pkr_tpu/frontend/features.py``.  The per-frame linear chain
 diag(window) · Preemph · DeDC is folded with the real DFT basis into two
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -76,6 +77,13 @@ class FbankConfig:
     @property
     def num_fft_bins(self) -> int:
         return self.padded_window_size // 2 + 1
+
+
+@dataclass(frozen=True)
+class MfccConfig(FbankConfig):
+    num_ceps: int = 40  # conf/mfcc.conf:6
+    cepstral_lifter: float = 22.0
+    use_energy: bool = True  # Kaldi compute-mfcc-feats default; C0 = log energy
 
 
 def num_frames(num_samples, cfg: FbankConfig):
@@ -325,3 +333,45 @@ def fbank(wav, length, cfg: FbankConfig = FbankConfig(),
     if cfg.use_energy:
         mel = torch.cat([loge[..., None], mel], dim=-1)
     return mel, mask
+
+
+def _dct_matrix(num_ceps: int, num_bins: int) -> np.ndarray:
+    """Orthonormal DCT-II with Kaldi's C0 convention, shape (num_bins, num_ceps)."""
+    n = np.arange(num_bins, dtype=np.float64)
+    k = np.arange(num_bins, dtype=np.float64)[:, None]
+    m = np.sqrt(2.0 / num_bins) * np.cos(math.pi / num_bins * (n + 0.5) * k)  # (k, n)
+    m = m.T  # right-multiply form: (num_bins, num_bins)
+    m[:, 0] = math.sqrt(1.0 / num_bins)
+    return m[:, :num_ceps].astype(np.float32)
+
+
+def _lifter_coeffs(num_ceps: int, q: float) -> np.ndarray:
+    i = np.arange(num_ceps, dtype=np.float64)
+    return (1.0 + 0.5 * q * np.sin(math.pi * i / q)).astype(np.float32)
+
+
+def mfcc(wav, length, cfg: MfccConfig = MfccConfig(),
+         generator: Optional[torch.Generator] = None,
+         max_frames: Optional[int] = None, device: DeviceLike = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched MFCC: the DCT of the log-mels (a full-f32 matmul, like
+    fbank's), liftered; with use_energy, C0 is the raw log energy, which is
+    what the energy VAD consumes (kaldi.py:602-650).
+
+    Returns feats (B, T_max, num_ceps), mask (B, T_max) bool."""
+    dev = resolve_device(device)
+    wav = as_device_tensor(wav, dev, torch.float32)
+    length = as_device_tensor(length, dev, torch.int64)
+    if wav.ndim == 1:
+        wav, length = wav[None], length.reshape(1)
+    frames, mask = frame_signal(wav, length, cfg, max_frames)
+    base = replace(cfg, use_energy=False, use_log_fbank=True, use_power=True)
+    mel, loge = _fbank_frames(frames, base, generator)
+    with full_f32():
+        feats = torch.matmul(mel, as_device_tensor(
+            _dct_matrix(cfg.num_ceps, cfg.num_mel_bins), dev))
+    if cfg.cepstral_lifter != 0.0:
+        feats = feats * as_device_tensor(_lifter_coeffs(cfg.num_ceps, cfg.cepstral_lifter), dev)
+    if cfg.use_energy:
+        feats = torch.cat([loge[..., None], feats[..., 1:]], dim=-1)
+    return feats, mask

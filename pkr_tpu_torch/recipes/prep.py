@@ -1,8 +1,6 @@
 """Corpus-preparation CLI — the run.sh stage-0 role.
 
-Port of ``pkr_tpu/recipes/prep.py`` (host code).  ``augment`` needs the
-augmentation data-dir builders, which are not ported yet (ROADMAP.md A.5):
-it raises.
+Port of ``pkr_tpu/recipes/prep.py`` (host code).
 
     python -m pkr_tpu_torch.recipes.prep voxceleb2 /data/voxceleb2 dev data/vox2_dev
     python -m pkr_tpu_torch.recipes.prep voxceleb1 /data/voxceleb1 test data/vox1_test
@@ -86,9 +84,14 @@ def main(argv=None):
         dd.save(out)
         print(f"{out}: {dd.num_utts} utts / {len(dd.spks)} speakers")
     elif args.cmd == "augment":
-        raise NotImplementedError(
-            "prep augment needs recipes/augment_dir.py, which the port does not "
-            "have yet (ROADMAP.md A.5)")
+        from pkr_tpu_torch.recipes.augment_dir import (augment_data_dir,
+                                                       perturb_data_dir_speed)
+
+        dd = augment_data_dir(DataDir.load(args.src), seed=args.seed)
+        if args.speed:
+            dd = perturb_data_dir_speed(dd)
+        dd.save(args.out)
+        print(f"{args.out}: {dd.num_utts} utts / {len(dd.spks)} speakers")
     return 0
 
 

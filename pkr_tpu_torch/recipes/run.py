@@ -21,10 +21,10 @@ Stages:
   6  score + EER/minDCF               [test.sh]
 
 ``--device`` (default: the card) is where the stages' tensors live; without
-a card and without ``--device cpu``, ``main`` raises.  One process on one
-card: augmentation pools (``--musan-dir``, ``--rir-dir``, ``utt2aug``
-mixing; ROADMAP.md A.5) and the class-sharded head
-(``train.model_parallel > 1``; A.11) raise.
+a card and without ``--device cpu``, ``main`` raises.  Stage 1 mixes a data
+dir's ``utt2aug`` copies on the card from MUSAN pools (``--musan-dir``) and
+RIRS_NOISES room sets (``--rir-dir``).  One process on one card: the
+class-sharded head (``train.model_parallel > 1``; ROADMAP.md A.11) raises.
 """
 
 from __future__ import annotations
@@ -194,12 +194,14 @@ def run_features(data_dir: str, out_dir: str, batch: int = 32,
     feature configuration — mel bins, freq range, VAD thresholds, CMVN
     window … (conf/fbank.conf + conf/vad.conf roles); without it, defaults
     with the given `dither` apply.  utt2speed entries are resampled at
-    decode and utt2warp entries set the bucket's VTLN warp; mixing utt2aug
-    copies needs augmentation pools, which the port does not have yet
-    (`pools` raises; without it utt2aug copies get clean features, with a
-    warning).  Wav decode runs on an n_jobs thread pool (the nj-way fan-out
-    of make_fbank.sh's run.pl jobs); the dither draws come from one
-    ``torch.Generator`` on the device seeded by `seed`.
+    decode and utt2warp entries set the bucket's VTLN warp; utt2aug copies
+    are mixed by `pools` (a recipes.augment_dir.AugmentPools on the same
+    device) on the card, right before the frontend, one call per bucket
+    (without pools they get clean features, with a warning).  Wav decode
+    runs on an n_jobs thread pool (the nj-way fan-out of make_fbank.sh's
+    run.pl jobs); augmentation and device work stay on the main thread, so
+    the augmenter's numpy draws are deterministic; the dither draws come
+    from one ``torch.Generator`` on the device seeded by `seed`.
 
     Buckets run through a one-deep pipeline: the card computes bucket k
     while the host CM-encodes bucket k−1 (its results are copied back into
@@ -212,13 +214,12 @@ def run_features(data_dir: str, out_dir: str, batch: int = 32,
     from pkr_tpu_torch.io import DataDir, write_ark_scp
     from pkr_tpu_torch.io.wav import read_wav
 
-    if pools is not None:
-        raise NotImplementedError(
-            "augmentation pools are not ported yet (ROADMAP.md A.5)")
     dev = resolve_device(device)
+    if pools is not None and pools.device.type != dev.type:
+        raise ValueError(f"the pools live on {pools.device}, the features on {dev}")
     dd = DataDir.load(data_dir)
     utt2aug = dd.get("utt2aug")
-    if any(k != "none" for k in utt2aug.values()):
+    if pools is None and any(k != "none" for k in utt2aug.values()):
         print(f"WARNING: {data_dir} has utt2aug entries but no augmentation "
               "pools were given — the augmented-named copies will get CLEAN "
               "features (exact duplicates of their source utterances)")
@@ -276,6 +277,13 @@ def run_features(data_dir: str, out_dir: str, batch: int = 32,
             for b, (utt, w) in enumerate(items):
                 wavs[b, : len(w)] = w
                 lens[b] = len(w)
+            if pools is not None and utt2aug:
+                # the whole bucket mixed on the card; the result feeds the
+                # frontend there, with no copy to the host
+                kinds = ([utt2aug.get(utt, "none") for utt, _ in items]
+                         + ["none"] * (Bp - B))
+                if any(k != "none" for k in kinds):
+                    wavs = pools.augmenter(wavs, lens, kinds=kinds, device_out=True)
             feats, mask, vad = wav_to_train_feats(
                 wavs, lens, gen, cfg_for(warp), apply_vad=apply_vad, device=dev)
             # pipeline: queue this bucket's copy back, then write out the
@@ -338,6 +346,19 @@ def run_features(data_dir: str, out_dir: str, batch: int = 32,
     with open(os.path.join(out_dir, "utt2num_frames"), "w") as f:
         for utt in sorted(utt2nf):
             f.write(f"{utt} {utt2nf[utt]}\n")
+
+    if pools is not None and pools._rotate_rows:
+        # pool-rotation record: a nonzero wait count means a slow disk kept
+        # shards live past rotate_rows
+        rec = {"pool_rotations_done": pools.rotations_done,
+               "pool_rotation_wait_batches": pools.rotation_wait_batches,
+               "pool_rotation_errors": pools.rotation_errors}
+        with open(os.path.join(out_dir, "stage1_metrics.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if pools.rotation_wait_batches:
+            print(f"  pool rotation: {pools.rotations_done} swaps, "
+                  f"{pools.rotation_wait_batches} batches ran with a due "
+                  "rotation waiting on prefetch")
 
 
 def run_split(feat_dir: str, data_dir: str, min_frames: int,
@@ -649,19 +670,15 @@ def main(argv=None):
                     help="capture a torch.profiler trace of ~10 steady-state "
                          "training steps into this dir (stage 3)")
     ap.add_argument("--musan-dir", type=str, default=None,
-                    help="MUSAN root for utt2aug augmentation pools (not "
-                         "ported yet)")
+                    help="MUSAN root for utt2aug augmentation pools")
     ap.add_argument("--rir-dir", type=str, default=None,
                     help="RIRS_NOISES-style root for the utt2aug 'reverb' "
-                         "branch (not ported yet)")
+                         "branch (rir_list room sets; run.sh:93-130 role)")
     ap.add_argument("--device", type=str, default=None,
                     help="torch device of every stage (default: the card; "
                          "'cpu' runs the plain PyTorch versions on the CPU)")
     args = ap.parse_args(argv)
 
-    if args.musan_dir or args.rir_dir:
-        raise NotImplementedError("--musan-dir/--rir-dir need augmentation pools, "
-                                  "which the port does not have yet (ROADMAP.md A.5)")
     dev = resolve_device(args.device)
     if args.preset:
         from pkr_tpu_torch.recipes.presets import PRESETS
@@ -681,6 +698,32 @@ def main(argv=None):
     feat_dir = os.path.join(args.exp_dir, "feats")
     test_feat_dir = os.path.join(args.exp_dir, "feats_test")
 
+    pools = None
+    if ((args.musan_dir or args.rir_dir) and cfg.data.augment
+            and 1 in _stage_range(args)):
+        from pkr_tpu_torch.recipes.augment_dir import AugmentPools
+
+        if args.musan_dir:
+            from pkr_tpu_torch.recipes.voxceleb import make_musan
+
+            # config SNR grids (DataConfig.snr_*, run.sh:136-144 defaults);
+            # full-corpus pools with rotating device shards (DataConfig.pool_*)
+            pools = AugmentPools.load(make_musan(args.musan_dir),
+                                      seed=cfg.train.seed,
+                                      snr={"noise": cfg.data.snr_noise,
+                                           "music": cfg.data.snr_music,
+                                           "babble": cfg.data.snr_babble},
+                                      max_len_sec=cfg.data.pool_len_sec,
+                                      shard_mb=cfg.data.pool_shard_mb,
+                                      rotate_rows=cfg.data.pool_rotate_rows,
+                                      device=dev)
+        else:
+            pools = AugmentPools(seed=cfg.train.seed, device=dev)
+        if args.rir_dir:
+            # run.sh:93-130: RIR-only reverberation (speech_rvb_prob 1, no
+            # additive noises composed) from the RIRS_NOISES room sets
+            pools.attach_rir_set(args.rir_dir)
+
     for stage in _stage_range(args):
         if stage == 0:
             for d in filter(None, (args.data_dir, args.test_data_dir)):
@@ -695,7 +738,7 @@ def main(argv=None):
             print(f"== stage 1: features → {feat_dir}")
             dither = cfg.frontend.fbank.dither
             run_features(args.data_dir, feat_dir, dither=dither,
-                         seed=cfg.train.seed, frontend=cfg.frontend,
+                         seed=cfg.train.seed, pools=pools, frontend=cfg.frontend,
                          n_jobs=cfg.data.decode_jobs,
                          encode_workers=cfg.data.encode_workers, device=dev)
             if args.test_data_dir:

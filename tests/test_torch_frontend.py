@@ -60,6 +60,21 @@ def test_fbank_parity():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("use_energy", [True, False])
+def test_mfcc_parity(use_energy):
+    """The DCT of the log-mels, liftered; with use_energy, C0 is the raw log
+    energy.  Held to the fbank's bound: the DCT and the lifter keep the
+    log-mels' 2e-4 (the largest coefficient here is ~1e2)."""
+    wav = make_wavs()
+    got, m_t = tf.mfcc(wav, LENGTHS, tf.MfccConfig(dither=0.0, use_energy=use_energy),
+                       device="cpu")
+    ref, m_j = jf.mfcc(jnp.asarray(wav), jnp.asarray(LENGTHS),
+                       jf.MfccConfig(dither=0.0, use_energy=use_energy))
+    assert got.shape == (3, 50, 40)
+    np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
 @pytest.mark.parametrize("cmn_window,center", [(300, True), (30, True), (30, False)])
 def test_wav_to_train_feats_parity(cmn_window, center):
     wav = make_wavs()

@@ -91,12 +91,17 @@ def _table(path):
 def test_run_features_matches_pkr_tpu(corpus):
     ref_dir = str(corpus["root"] / "feats_jax")
     jrun.run_features(corpus["data"], ref_dir, batch=4, dither=0.0)
-    got_dir = corpus["feats"]
+    _assert_features_match(corpus["feats"], ref_dir, 32)
+
+
+def _assert_features_match(got_dir, ref_dir, n_utts):
+    """The same utterances, utt2num_frames and VAD; features within one CM
+    code step of their column (the module docstring)."""
     assert (open(os.path.join(got_dir, "utt2num_frames")).read()
             == open(os.path.join(ref_dir, "utt2num_frames")).read())
     got_scp = _table(os.path.join(got_dir, "feats.scp"))
     ref_scp = _table(os.path.join(ref_dir, "feats.scp"))
-    assert list(got_scp) == list(ref_scp) and len(got_scp) == 32
+    assert list(got_scp) == list(ref_scp) and len(got_scp) == n_utts
     got_vad = _table(os.path.join(got_dir, "vad.scp"))
     ref_vad = _table(os.path.join(ref_dir, "vad.scp"))
     for utt in ref_scp:
@@ -109,6 +114,54 @@ def test_run_features_matches_pkr_tpu(corpus):
                        (pct[3] - pct[2]) / 63], axis=0)
         excess = np.abs(got - ref) - (step + 2e-4 * (1 + np.abs(ref)))
         assert excess.max() <= 0, (utt, float(excess.max()))
+    return {u: kaldi_ark.read_mat(p) for u, p in got_scp.items()}
+
+
+def _pools(ad, rir_root, noise_list, **device):
+    """In-memory MUSAN-style pools (as tests/test_e2e.py's) and a
+    RIRS_NOISES-style room set with point and isotropic noises, built by
+    one package's recipes.augment_dir."""
+    rng = np.random.default_rng(0)
+    AP = ad.AugmentPools
+    pools = AP(noise=AP.from_wavs([rng.standard_normal(8000).astype(np.float32) * 50
+                                   for _ in range(3)], 16000),
+               music=AP.from_wavs([np.sin(np.arange(12000) / 20).astype(np.float32) * 500],
+                                  16000),
+               speech=AP.from_wavs([rng.standard_normal(6000).astype(np.float32) * 300
+                                    for _ in range(8)], 16000), seed=0, **device)
+    return pools.attach_rir_set(rir_root, noise_set_params=[noise_list],
+                                max_noises_per_minute=240, max_rir_sec=0.1,
+                                max_noise_sec=1.0)
+
+
+def test_run_features_with_pools_matches_pkr_tpu(corpus, tmp_path):
+    """Stage 1 over an augmented data dir (every utterance plus a noise,
+    music, babble or reverb copy, and a 0.9 speed copy of each), the copies
+    mixed from the same pools and plans in both packages: the reference's
+    bounds of test_run_features_matches_pkr_tpu hold, and every augmented
+    copy's features differ from its clean source's."""
+    import pkr_tpu.recipes.augment_dir as jad
+    import pkr_tpu_torch.recipes.augment_dir as tad
+    from test_rir import _make_noise_list, _make_rir_tree
+
+    rir_root = _make_rir_tree(str(tmp_path / "RIRS_NOISES"))
+    noise_list = _make_noise_list(rir_root)
+    aug = tad.perturb_data_dir_speed(
+        tad.augment_data_dir(DataDir.load(corpus["data"]), seed=1), factors=(0.9,))
+    aug_dir = str(tmp_path / "data_aug")
+    aug.save(aug_dir)
+    assert set(aug["utt2aug"].values()) == {"none", *tad.AUG_KINDS}
+    ref_dir, got_dir = str(tmp_path / "feats_jax"), str(tmp_path / "feats")
+    jrun.run_features(aug_dir, ref_dir, batch=4, dither=0.0,
+                      pools=_pools(jad, rir_root, noise_list))
+    trun.run_features(aug_dir, got_dir, batch=4, dither=0.0, device="cpu",
+                      pools=_pools(tad, rir_root, noise_list, device="cpu"))
+    feats = _assert_features_match(got_dir, ref_dir, 128)
+    for utt, kind in aug["utt2aug"].items():
+        if kind != "none":
+            clean = feats[utt.rsplit("-", 1)[0]]
+            n = min(len(clean), len(feats[utt]))
+            assert np.abs(feats[utt][:n] - clean[:n]).max() > 0.01, utt
 
 
 def test_run_split_matches_pkr_tpu(corpus, tmp_path):
@@ -404,10 +457,64 @@ def test_main_softmax_plda_flow_then_aam_warm_start(tmp_path):
 
 
 def test_unported_options_raise(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="A.5"):
-        _main("--data-dir", corpus["data"], "--musan-dir", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        trun.run_features(corpus["data"], str(tmp_path / "f"), pools=object(), device="cpu")
     with pytest.raises(ValueError, match="A.11"):
         trun.run_train(tiny_cfg(model_parallel=2), corpus["feats"], str(tmp_path),
                        device="cpu")
+
+
+def _musan_tree(root):
+    """A tiny MUSAN tree: noise/, music/ (one vocal track, which
+    ANNOTATIONS marks and make_musan skips) and speech/."""
+    from pkr_tpu_torch.io.wav import write_wav
+
+    rng = np.random.default_rng(3)
+    for kind, n in (("noise", 3), ("music", 3), ("speech", 4)):
+        d = os.path.join(root, kind, "sub")
+        os.makedirs(d)
+        for i in range(n):
+            write_wav(os.path.join(d, f"{kind}-sub-{i:04d}.wav"),
+                      rng.standard_normal(int(rng.integers(6000, 20000))) * 300)
+    with open(os.path.join(root, "music", "sub", "ANNOTATIONS"), "w") as f:
+        f.write("music-sub-0000 genre Y artist\nmusic-sub-0001 genre N artist\n")
+
+
+def test_main_musan_and_rir_dirs_and_prep_augment(corpus, tmp_path, capsys):
+    """prep augment --speed, then stages 0-1 of main with --musan-dir and
+    --rir-dir (test_e2e.py's test_cli_with_musan_dir with the RIR set): the
+    port's prep tables equal pkr_tpu's, every utterance gets features, every
+    augmented copy differs from its source, the speed copies' frame counts
+    follow n/0.9 and n/1.1, and stage 1 writes its rotation record."""
+    from pkr_tpu.recipes import prep as jprep
+    from pkr_tpu_torch.recipes import prep as tprep
+    from test_rir import _make_rir_tree
+
+    aug, ref = str(tmp_path / "data_aug"), str(tmp_path / "data_aug_jax")
+    assert tprep.main(["augment", corpus["data"], aug, "--speed", "--seed", "2"]) == 0
+    assert jprep.main(["augment", corpus["data"], ref, "--speed", "--seed", "2"]) == 0
+    assert "data_aug: 192 utts" in capsys.readouterr().out
+    for name in sorted(os.listdir(ref)):
+        assert open(os.path.join(aug, name)).read() == open(os.path.join(ref, name)).read()
+    _musan_tree(str(tmp_path / "musan"))
+    rir_root = _make_rir_tree(str(tmp_path / "RIRS_NOISES"))
+    cfg = str(tmp_path / "cfg.json")
+    open(cfg, "w").write(Config(data=DataConfig(
+        pool_len_sec=0.5, pool_shard_mb=0, pool_rotate_rows=16)).to_json())
+    exp = str(tmp_path / "exp")
+    _main("--stage", "0", "--stop-stage", "1", "--data-dir", aug, "--exp-dir", exp,
+          "--musan-dir", str(tmp_path / "musan"), "--rir-dir", rir_root, config=cfg)
+    feats = dict(kaldi_ark.read_mat_scp(os.path.join(exp, "feats", "feats.scp")))
+    dd = DataDir.load(aug)
+    assert sorted(feats) == sorted(dd.utts) and all(np.isfinite(m).all() for m in feats.values())
+    for utt, kind in dd["utt2aug"].items():
+        if kind != "none":
+            clean = feats[utt.rsplit("-", 1)[0]]
+            n = min(len(clean), len(feats[utt]))
+            assert np.abs(feats[utt][:n] - clean[:n]).max() > 0.01, utt
+    vad = _table(os.path.join(exp, "feats", "vad.scp"))
+    for utt in DataDir.load(corpus["data"]).utts:
+        n = len(kaldi_ark.read_vec_flt(vad[utt]))
+        for f in (0.9, 1.1):
+            assert abs(len(kaldi_ark.read_vec_flt(vad[f"sp{f}-{utt}"])) - n / f) <= 2, (utt, f)
+    rec = [json.loads(l) for l in open(os.path.join(exp, "feats", "stage1_metrics.jsonl"))]
+    assert len(rec) == 1 and rec[0]["pool_rotation_errors"] == 0
+    assert rec[0]["pool_rotations_done"] >= 1

@@ -33,8 +33,10 @@ from pkr_tpu.models import SpeakerModel as FlaxSpeakerModel
 from pkr_tpu.train.loop import make_eval_step as jax_make_eval_step
 from pkr_tpu_torch.convert import state_dict_from_flax
 from pkr_tpu_torch.data import BalancedRepetitionSampler, DeviceCacheLoader, DeviceFeatureCache
+from pkr_tpu_torch.data.augment import WavAugmenter
 from pkr_tpu_torch.eval import cohort_topk_stats, compute_eer, cosine_scores, extract_embeddings
 from pkr_tpu_torch.models import SpeakerModel
+from pkr_tpu_torch.recipes.augment_dir import AugmentPools
 from pkr_tpu_torch.recipes.run import main as recipe_main
 from pkr_tpu_torch.train import make_eval_step, make_train_step
 
@@ -133,12 +135,12 @@ def test_package_imports_neither_jax_nor_pkr_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 46  # every submodule was imported
+    assert int(proc.stdout.split()[-1]) >= 49  # every submodule was imported
 
 
 @pytest.mark.parametrize("call", ["frontend", "model", "eval_step", "train_step",
                                   "scores", "cache_build", "cache_loader", "cohort_stats",
-                                  "recipe_main"])
+                                  "recipe_main", "mfcc", "augmenter", "augment_pools"])
 def test_entry_points_raise_without_a_card(call, monkeypatch):
     """device=None means the card; where there is none, raise instead of
     quietly running on the CPU."""
@@ -163,6 +165,12 @@ def test_entry_points_raise_without_a_card(call, monkeypatch):
             cohort_topk_stats(v, np.ones((3, 4), np.float32), 2)
         elif call == "recipe_main":
             recipe_main(["--data-dir", REPO, "--stage", "6", "--stop-stage", "6"])
+        elif call == "mfcc":
+            tf.mfcc(wav, lengths)
+        elif call == "augmenter":
+            WavAugmenter(noise=(np.ones((2, 8), np.float32), np.array([8, 8])))
+        elif call == "augment_pools":
+            AugmentPools()
         elif call == "cache_build":
             DeviceFeatureCache.build({"u": np.ones((30, 8), np.float32)}, {"u": 0})
         else:
