@@ -90,6 +90,24 @@ Phases, one JSON line each:
           ms per batch and kind, augmented utterances/s, the pools' and tiles' bytes on the
           card, and stage-1 utterances/s beside the recipe phase's clean
           rate;
+  zoo     the rest of the model zoo (se_resnet34, thin_resnet34,
+          resnet50/101/152, densenet62/115/121/169/201/161): each serves
+          one bf16 batch of 128 six-second utterances through make_embed_fn
+          with seeded random weights (device and wall ms, peak memory,
+          parameters; finite embeddings); densenet121 at the train phase's
+          width (B=256 x 200 frames, 7325 speakers, bf16 trunk) takes 8
+          flash steps on one batch (the loss must fall), one epoch of
+          train_and_validate, then extract_embeddings -> cosine_scores ->
+          EER; se_resnet34 takes 5 flash steps; a softmax -> AAM warm start
+          of densenet121 through save_checkpoint/load_pretrained must load
+          what pkr_tpu's rule loads (all but the heads).  Then one flash and
+          one dense densenet121 step agree as in the train phase; for
+          se_resnet34 and densenet121 in f32, a bucketed batch equals each
+          row's exact-length embedding within 1e-4 of its norm, and the card
+          equals the CPU within 5e-4 of the largest entry; ms/step,
+          examples/s, conv-MFU (convolution FLOPs counted by forward hooks
+          on nn.Conv2d) and a step's device ms and busy share of both; both
+          kernels launched; the phase within 150 s;
   kernels every kernel with its launches on the paths and its errors.
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
@@ -1987,6 +2005,244 @@ def _augmented_recipe(torch, smi_line, root, log):
             "rotation": rec[0]}
 
 
+ZOO_TRUNKS = ("se_resnet34", "thin_resnet34", "resnet50", "resnet101", "resnet152",
+              "densenet62", "densenet115", "densenet121", "densenet169", "densenet201",
+              "densenet161")
+ZOO_GATED = ("se_resnet34", "densenet121")  # bucket and card-vs-CPU gates, f32
+ZOO_BUDGET_S = 150.0
+ZOO_STEPS = 8        # densenet121 flash steps on one batch: the loss must fall
+ZOO_SE_STEPS = 5     # se_resnet34 flash steps
+# on one fixed batch both trunks' losses fall steadily at this rate (at the
+# train phase's 0.1 they drop once, then climb back toward the start)
+ZOO_LR = 0.01
+BUCKET_LENGTHS = (600, 537, 411, 350, 288, 200, 150, 97)
+
+
+def _zoo_model(torch, trunk, loss, dtype, seed, device="cuda"):
+    from pkr_tpu_torch.models import SpeakerModel
+
+    return SpeakerModel(SPK, 40, "mean+std", loss, trunk=trunk, dtype=dtype, device=device,
+                        generator=torch.Generator().manual_seed(seed))
+
+
+def conv_flops(torch, model, x):
+    """Forward convolution FLOPs of one embed call, counted by forward hooks
+    on every nn.Conv2d: 2 · output elements · cin/groups · kh · kw."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        kh, kw = mod.kernel_size
+        total[0] += 2 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model.embed(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def _zoo_train_speed(torch, model, step, x, y, lr, smi_line):
+    """ms/step (median of 3 windows of 4 steps, after one warm-up step),
+    examples/s and conv-MFU of a train step, from a fresh state; then the
+    step's device ms (torch.profiler), its device activities and the busy
+    share device / wall."""
+    from pkr_tpu_torch.train import create_train_state
+
+    flops = 3.0 * conv_flops(torch, model, x[:2]) * x.shape[0] / 2  # fwd + bwd ≈ 3 × fwd
+    st = create_train_state(model)
+    st, _ = step(st, x, y, lr)
+    ms, windows, _ = _median_step_ms(torch, step, st, x, y, lr)
+    dev_ms, n_act, top = device_ms(torch, lambda: step(st, x, y, lr), 2)
+    return {"ms_per_step": ms, "window_ms": windows, "examples_per_s": x.shape[0] * 1e3 / ms,
+            "device_ms": dev_ms, "activities": n_act,
+            "busy": None if dev_ms is None else dev_ms / ms, "top": top[:3],
+            "conv_flops_per_step": flops,
+            "conv_mfu_bf16": flops / (ms * 1e-3) / PEAK_BF16_FLOPS, "card": smi_line}
+
+
+def _bucket_gate(torch, model32, x):
+    """A bucketed f32 batch (rows of BUCKET_LENGTHS zero-padded to 600
+    frames, with their mask) embeds as each row does at its exact length:
+    the largest row error relative to the row's norm."""
+    n = len(BUCKET_LENGTHS)
+    xb = torch.zeros((n, 40, x.shape[2]), device=x.device)
+    mb = torch.zeros((n, x.shape[2]), dtype=torch.bool, device=x.device)
+    for i, t in enumerate(BUCKET_LENGTHS):
+        xb[i, :, :t] = x[i, :, :t].float()
+        mb[i, :t] = True
+    with torch.no_grad():
+        bucketed = model32.embed(xb, mb)
+        exact = torch.cat([model32.embed(xb[i:i + 1, :, :t])
+                           for i, t in enumerate(BUCKET_LENGTHS)])
+    return float(((bucketed - exact).norm(dim=1) / exact.norm(dim=1)).max())
+
+
+def phase_zoo(torch, smi_line):
+    """The rest of the model zoo on the card: every trunk serves a batch;
+    densenet121 trains (flash head), cv, extracts and scores; se_resnet34
+    trains; a softmax → AAM warm start of densenet121."""
+    import io
+    import tempfile
+
+    from pkr_tpu_torch.eval import compute_eer, cosine_scores, extract_embeddings, make_embed_fn
+    from pkr_tpu_torch.frontend import wav_to_train_feats
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.train import (create_train_state, load_pretrained, make_train_step,
+                                     save_checkpoint, train_and_validate)
+    from pkr_tpu_torch.utils import ProgressLogger
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    wavs, freqs = make_wavs(BATCH)
+    lengths = np.full((BATCH,), N_SAMPLES, np.int64)
+    feats, mask, _ = wav_to_train_feats(wavs, lengths,
+                                        torch.Generator(device=dev).manual_seed(0))
+    x_serve = feats.permute(0, 2, 1).contiguous()  # (B, F, T)
+    keys = [f"utt{i:03d}" for i in range(BATCH)]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((TRAIN_B, 40, TRAIN_T), generator=gen, device=dev)
+    y = torch.randint(0, SPK, (TRAIN_B,), generator=gen, device=dev)
+    x_cv = torch.randn((TRAIN_B, 40, TRAIN_T), generator=gen, device=dev)
+    lr = ZOO_LR
+
+    # --- the main path, with every kernel count at 0 just before it ---
+    fa.flash_aam_fwd.launches = 0
+    fa.flash_aam_bwd.launches = 0
+    t0 = time.perf_counter()
+    serving, gated = {}, {}
+    for i, trunk in enumerate(ZOO_TRUNKS):  # one bf16 batch each, then its times
+        model = _zoo_model(torch, trunk, "AAM", torch.bfloat16, 100 + i)
+        embed = make_embed_fn(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        e = embed(x_serve, mask)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t1
+        check(tuple(e.shape) == (BATCH, 256) and bool(torch.isfinite(e).all()),
+              f"{trunk}: embeddings {tuple(e.shape)} not finite")
+        dev_ms, n_act, top = device_ms(torch, lambda: embed(x_serve, mask), 2)
+        serving[trunk] = {
+            "device_ms": dev_ms, "wall_ms": call_ms(torch, lambda: embed(x_serve, mask), 3,
+                                                    warmup=1),
+            "first_call_s": first_s, "activities": n_act, "top": top[:3],
+            "params": sum(p.numel() for p in model.parameters()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        if trunk in ZOO_GATED:
+            gated[trunk] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        del model, embed, e
+
+    model = _zoo_model(torch, "densenet121", "AAM", torch.bfloat16, 7)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    flash_step = make_train_step(model, flash_aam=True)
+    dense_step = make_train_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(model)
+    losses = []
+    for _ in range(ZOO_STEPS):  # one fixed batch: the loss must fall
+        state, m = flash_step(state, x, y, lr)
+        losses.append(m["loss"])
+    cv = []
+    state = train_and_validate(
+        model, state, _Loader([(x, y)] * 3), _Loader([(x_cv, y)]), epochs=1, lr0=lr,
+        flash_aam=True, logger=ProgressLogger(io.StringIO()),
+        on_epoch_end=lambda s, e, mt: cv.append(mt))
+    half = BATCH // 2
+    emb = extract_embeddings(model, [(keys[:half], x_serve[:half], mask[:half]),
+                                     (keys[half:], x_serve[half:], mask[half:])])
+    enroll = {k: emb[k] for k in keys[:16]}
+    test = {k: emb[k] for k in keys[16:32]}
+    trials = [(a, b) for a in enroll for b in test]
+    trial_labels = [int(abs(freqs[int(a[3:])] - freqs[int(b[3:])]) < 20.0) for a, b in trials]
+    scores = cosine_scores(enroll, test, trials, np.mean(np.stack(list(emb.values())), 0))
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    se = _zoo_model(torch, "se_resnet34", "AAM", torch.bfloat16, 8)
+    se_step = make_train_step(se, flash_aam=True)
+    se_state = create_train_state(se)
+    se_losses = []
+    for _ in range(ZOO_SE_STEPS):
+        se_state, m = se_step(se_state, x, y, lr)
+        se_losses.append(m["loss"])
+
+    soft = _zoo_model(torch, "densenet121", "softmax", torch.bfloat16, 9)
+    aam = _zoo_model(torch, "densenet121", "AAM", torch.bfloat16, 10)
+    aam_before = {k: v.clone() for k, v in aam.state_dict().items()}
+    with tempfile.TemporaryDirectory(prefix="pkr_zoo_") as root:
+        save_checkpoint(root, soft, create_train_state(soft), sync=True)
+        loaded = load_pretrained(root, aam, which="latest", verbose=False)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {"flash_aam_fwd": fa.flash_aam_fwd.launches,
+                "flash_aam_bwd": fa.flash_aam_bwd.launches}
+    # --- end of the main path ---
+
+    check(launches["flash_aam_fwd"] > 0, "the zoo never launched flash_aam_fwd")
+    check(launches["flash_aam_bwd"] > 0, "the zoo never launched flash_aam_bwd")
+    losses = [float(v) for v in losses]
+    se_losses = [float(v) for v in se_losses]
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"densenet121: the loss did not fall: {losses}")
+    check(np.isfinite(se_losses).all() and se_losses[-1] < se_losses[0],
+          f"se_resnet34: the loss did not fall: {se_losses}")
+    check(int(state.step) == ZOO_STEPS + 3 and len(cv) == 1 and np.isfinite(cv[0]["loss"]),
+          f"densenet121 epoch: step {int(state.step)}, cv {cv}")
+    E = np.stack([emb[k] for k in keys])
+    check(E.shape == (BATCH, 256) and np.isfinite(E).all(), "densenet121 extraction")
+    check(0 < sum(trial_labels) < len(trial_labels), "trials need both labels")
+    eer = compute_eer(scores, trial_labels)
+    check(np.isfinite(scores).all() and 0.0 <= eer <= 1.0, f"densenet121 EER {eer}")
+
+    # pkr_tpu's warm start loads every variable whose path is in both models
+    # with one shape: softmax → AAM, all but the heads (softmax bn1 and
+    # last/kernel; the AAM weight aam_weight, also last.weight here)
+    src_names = set(soft.state_dict())
+    want = sorted(k for k in aam.state_dict() if k in src_names
+                  and not k.endswith("num_batches_tracked") and not k.startswith("last."))
+    check(sorted(loaded) == want, f"warm start loaded {len(loaded)} tensors, "
+                                  f"pkr_tpu's rule {len(want)}")
+    soft_sd, aam_sd = soft.state_dict(), aam.state_dict()
+    check(all(torch.equal(aam_sd[k], soft_sd[k]) for k in want), "warm start values")
+    check(torch.equal(aam_sd["last.weight"], aam_before["last.weight"]),
+          "the softmax classifier was copied into the AAM weight")
+
+    agree = flash_dense_agree(torch, model, init, flash_step, dense_step, x, y, lr)
+    gates = {}
+    for trunk, sd in gated.items():
+        m32 = _zoo_model(torch, trunk, "AAM", torch.float32, 0)
+        m32.load_state_dict(sd)
+        bucket = _bucket_gate(torch, m32, x_serve)
+        check(bucket <= 1e-4, f"{trunk}: bucketed vs exact-length rel err {bucket}")
+        m_cpu = _zoo_model(torch, trunk, "AAM", torch.float32, 0, device="cpu")
+        m_cpu.load_state_dict(sd)
+        with torch.no_grad():
+            e_gpu = m32.embed(x_serve[:2].float(), mask[:2]).cpu()
+            e_cpu = m_cpu.embed(x_serve[:2].float().cpu(), mask[:2].cpu())
+        rel = float((e_gpu - e_cpu).abs().max() / e_cpu.abs().max())
+        check(rel <= 5e-4, f"{trunk}: f32 embedding card vs CPU rel err {rel}")
+        gates[trunk] = {"bucket_row_rel": bucket, "f32_card_vs_cpu_rel": rel}
+
+    speed = {"densenet121": _zoo_train_speed(torch, model, flash_step, x, y, lr, smi_line),
+             "se_resnet34": _zoo_train_speed(torch, se, se_step, x, y, lr, smi_line)}
+    phase_s = time.perf_counter() - t_phase
+    check(phase_s <= ZOO_BUDGET_S, f"the zoo phase took {phase_s:.1f} s "
+                                   f"(budget {ZOO_BUDGET_S} s)")
+    emit({"phase": "zoo", "batch": BATCH, "frames": int(x_serve.shape[2]),
+          "launches": launches, "path_seconds": path_s, "phase_seconds": phase_s,
+          "serving": serving, "gates": gates,
+          "densenet121": {"flash_losses": losses, "cv": cv[0], "eer": eer,
+                          "n_trials": len(trials), "agree": agree, "peak_mem_gb": train_peak},
+          "se_resnet34": {"flash_losses": se_losses},
+          "warm_start": {"loaded": len(loaded), "rule": len(want)},
+          "train_speed": speed, "card": smi_line})
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
@@ -2025,6 +2281,7 @@ def main():
         corpus_launches = phase_corpus(torch, smi_line)
         recipe_launches, clean_stage1_per_s = phase_recipe(torch, smi_line)
         phase_augment(torch, smi_line, clean_stage1_per_s)
+        zoo_launches = phase_zoo(torch, smi_line)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2036,13 +2293,15 @@ def main():
                       {"slice": launches["flash_aam_fwd"],
                        "train": train_launches["flash_aam_fwd"],
                        "corpus": corpus_launches["flash_aam_fwd"],
-                       "recipe": recipe_launches["flash_aam_fwd"]},
+                       "recipe": recipe_launches["flash_aam_fwd"],
+                       "zoo": zoo_launches["flash_aam_fwd"]},
                       rows, rows[0], ("max_abs_err_lse", "max_abs_err_zy")),
         _kernel_entry("flash_aam_bwd", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
                       "pkr_tpu/ops/flash_aam.py:197",
                       {"train": train_launches["flash_aam_bwd"],
                        "corpus": corpus_launches["flash_aam_bwd"],
-                       "recipe": recipe_launches["flash_aam_bwd"]},
+                       "recipe": recipe_launches["flash_aam_bwd"],
+                       "zoo": zoo_launches["flash_aam_bwd"]},
                       bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"))]
     emit({"kernels": kernels})
     print(smi_line, flush=True)

@@ -5,8 +5,9 @@ obvious counterpart, and it imports neither JAX nor anything of ``pkr_tpu``:
 
 - ``pkr_tpu_torch.frontend``  wav → fbank → energy VAD → sliding CMVN →
                               voiced-frame selection, batched on the card
-- ``pkr_tpu_torch.models``    ResNet trunks (reference state-dict names) and
-                              the speaker model with softmax/AAM heads
+- ``pkr_tpu_torch.models``    ResNet and DenseNet trunks (reference
+                              state-dict names) and the speaker model with
+                              softmax/AAM heads
 - ``pkr_tpu_torch.ops``       stats pooling, the dense AAM head and the
                               flash AAM head with its CUDA kernels
 - ``pkr_tpu_torch.io``        Kaldi ark/scp (CM codec, native reader), wavs,

@@ -1,13 +1,29 @@
-"""Model zoo of the port: ResNet trunks and the speaker-embedding model with
-softmax/AAM heads.  The SE, thin, bottleneck and DenseNet trunks of
-``pkr_tpu.models`` are not ported yet."""
+"""Model zoo of the port: the ResNet trunks (BasicBlock, SE, Bottleneck and
+thin), the DenseNet trunks, and the speaker-embedding model with
+softmax/AAM heads."""
 
+from pkr_tpu_torch.models.densenet import (
+    DENSENETS,
+    DenseNet,
+    densenet62,
+    densenet115,
+    densenet121,
+    densenet161,
+    densenet169,
+    densenet201,
+)
 from pkr_tpu_torch.models.resnet import (
     BatchNorm,
     ResNet,
+    ThinResNet,
     commit_batch_stats,
     resnet18,
     resnet34,
+    resnet50,
+    resnet101,
+    resnet152,
+    se_resnet34,
+    thin_resnet34,
     tiny_resnet,
 )
 from pkr_tpu_torch.models.speaker_model import SpeakerModel
@@ -15,9 +31,23 @@ from pkr_tpu_torch.models.speaker_model import SpeakerModel
 __all__ = [
     "BatchNorm",
     "ResNet",
+    "ThinResNet",
     "commit_batch_stats",
     "resnet18",
     "resnet34",
+    "resnet50",
+    "resnet101",
+    "resnet152",
+    "se_resnet34",
+    "thin_resnet34",
     "tiny_resnet",
+    "DENSENETS",
+    "DenseNet",
+    "densenet62",
+    "densenet115",
+    "densenet121",
+    "densenet161",
+    "densenet169",
+    "densenet201",
     "SpeakerModel",
 ]

@@ -2,8 +2,13 @@
 
 Port of ``pkr_tpu/models/resnet.py``:
 - stem: 3x3 stride-1 conv to 32 channels + BN + ReLU (no max-pool),
-- stages 32/64/128/256 with strides 1/2/2/2, BasicBlock with expansion 1,
+- stages 32/64/128/256 with strides 1/2/2/2 of BasicBlock (optionally with
+  a squeeze-excitation gate, ``se_resnet34``) or Bottleneck
+  (``resnet50/101/152``), both with expansion 1 as in the reference,
 - 1x1-conv+BN downsample on a shape change,
+- ``ThinResNet`` (``thin_resnet34``): a 7x7 stem to 8 channels, stages
+  8/16/32/64 of BasicBlock, and the f32 mean over frequency, so it returns
+  (B, C, T') where the others return the (B, C, F/8, T/8) map,
 - Kaiming-normal(fan_out) conv init (drawn from ``generator`` when one is
   given), BN γ=1 β=0, eps 1e-5.
 
@@ -12,13 +17,15 @@ Layout: the input (B, F, T) becomes (B, 1, H=F, W=T).  Every conv pads
 explicit symmetric padding at stride 2.
 
 Module names follow the reference's state dict (``conv1``/``bn1`` stem,
-``layerL.J.conv1/bn1/conv2/bn2/downsample.{0,1}``), so checkpoints move
-between the reference, ``pkr_tpu`` and the port by name.
+``layerL.J.conv1/bn1/conv2/bn2[/conv3/bn3]/downsample.{0,1}``, the SE gate's
+``layerL.J.se.fc.{0,2}``), so checkpoints move between the reference,
+``pkr_tpu`` and the port by name.
 
 Masks: with a (B, T) frame mask, padded time columns are re-zeroed after
-the stem, inside each block after relu(conv1) and after each block, which is
-what an exact-length run's conv zero padding sees — so bucketed extraction
-equals exact-length extraction for every valid column.
+the stem, inside each block before its time-mixing 3x3 conv and after each
+block, which is what an exact-length run's conv zero padding sees — so
+bucketed extraction equals exact-length extraction for every valid column.
+The SE gate's squeeze averages over the valid columns only.
 
 BatchNorm follows flax (``pkr_tpu`` uses ``flax.linen.BatchNorm``): in
 train mode it normalizes with the biased batch variance and stages the
@@ -29,6 +36,7 @@ guard).  Torch's ``BatchNorm2d`` would fold in the unbiased variance.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -112,8 +120,49 @@ def zero_time_pad(x: torch.Tensor, n_valid: Optional[torch.Tensor]) -> torch.Ten
     return x * keep[:, None, None, :].to(x.dtype)
 
 
+def _dense(cin: int, cout: int, generator: Optional[torch.Generator] = None,
+           bias: bool = True) -> nn.Linear:
+    """Linear with the reference's flax Dense init (lecun normal, zero bias)."""
+    lin = nn.Linear(cin, cout, bias=bias)
+    nn.init.normal_(lin.weight, std=1.0 / math.sqrt(cin), generator=generator)
+    if bias:
+        nn.init.zeros_(lin.bias)
+    return lin
+
+
+class SEGate(nn.Module):
+    """Squeeze-excitation channel gate, reduction 16 (the reference's
+    SELayer, ``fc = Linear, ReLU, Linear, Sigmoid``).
+
+    The squeeze is the f32 mean over frequency and, with ``n_valid`` (B,),
+    over the valid time columns only: padded columns of a bucketed batch
+    must not leak into the gate.  The sigmoid runs in f32 and the gate is
+    cast back to the map's dtype."""
+
+    def __init__(self, channels: int, reduction: int = 16,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.fc = nn.Sequential(_dense(channels, channels // reduction, generator, False),
+                                nn.ReLU(),
+                                _dense(channels // reduction, channels, generator, False),
+                                nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor,
+                n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        if n_valid is None:
+            y = torch.mean(xf, dim=(2, 3))
+        else:
+            m = (torch.arange(x.shape[3], device=x.device)[None, :]
+                 < n_valid[:, None]).to(torch.float32)
+            y = torch.sum(xf * m[:, None, None, :], dim=(2, 3))
+            y = y / (x.shape[2] * torch.clamp(m.sum(dim=1), min=1.0))[:, None]
+        g = self.fc[3](self.fc[:3](y).to(torch.float32)).to(x.dtype)
+        return x * g[:, :, None, None]
+
+
 class BasicBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, stride: int = 1,
+    def __init__(self, cin: int, cout: int, stride: int = 1, use_se: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stride = stride
@@ -121,6 +170,7 @@ class BasicBlock(nn.Module):
         self.bn1 = BatchNorm(cout)
         self.conv2 = _conv(cout, cout, 3, 1, generator)
         self.bn2 = BatchNorm(cout)
+        self.se = SEGate(cout, generator=generator) if use_se else None
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(_conv(cin, cout, 1, stride, generator),
@@ -134,6 +184,39 @@ class BasicBlock(nn.Module):
         y = torch.relu(self.bn1(self.conv1(x)))
         y = zero_time_pad(y, n_out)  # conv2 must not read BN-biased pads
         y = self.bn2(self.conv2(y))
+        if self.se is not None:
+            y = self.se(y, n_out)
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    """1x1 → 3x3 (stride) → 1x1 with expansion 1, as the reference.  The
+    reference's bottleneck has no SE gate, so ``use_se`` is refused."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1, use_se: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if use_se:
+            raise ValueError("Bottleneck has no SE gate")
+        self.stride = stride
+        self.conv1 = _conv(cin, cout, 1, 1, generator)
+        self.bn1 = BatchNorm(cout)
+        self.conv2 = _conv(cout, cout, 3, stride, generator)
+        self.bn2 = BatchNorm(cout)
+        self.conv3 = _conv(cout, cout, 1, 1, generator)
+        self.bn3 = BatchNorm(cout)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(_conv(cin, cout, 1, stride, generator),
+                                            BatchNorm(cout))
+
+    def forward(self, x: torch.Tensor,
+                n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = zero_time_pad(y, n_valid)  # the 3x3 below mixes across time
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(y + residual)
 
@@ -141,20 +224,21 @@ class BasicBlock(nn.Module):
 class ResNet(nn.Module):
     """Speaker-verification ResNet trunk; returns the (B, C, F/8, T/8) map."""
 
-    def __init__(self, stage_sizes: Sequence[int], base_width: int = 32,
+    def __init__(self, stage_sizes: Sequence[int], block: type = BasicBlock,
+                 base_width: int = 32, use_se: bool = False, stem_kernel: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.base_width = base_width
-        self.conv1 = _conv(1, base_width, 3, 1, generator)
+        self.conv1 = _conv(1, base_width, stem_kernel, 1, generator)
         self.bn1 = BatchNorm(base_width)
         cin = base_width
         for i, n_blocks in enumerate(self.stage_sizes):
             cout = base_width * (2 ** i)
             blocks = []
             for j in range(n_blocks):
-                blocks.append(BasicBlock(cin, cout, 2 if (i > 0 and j == 0) else 1,
-                                         generator))
+                blocks.append(block(cin, cout, 2 if (i > 0 and j == 0) else 1,
+                                    use_se, generator))
                 cin = cout
             setattr(self, f"layer{i + 1}", nn.ModuleList(blocks))
         self.out_channels = cin
@@ -164,6 +248,11 @@ class ResNet(nn.Module):
         """Valid output frames for n valid input frames (three ceil-div-2
         stages: (k-1)//2 padding under stride 2)."""
         return (n + 7) // 8
+
+    @staticmethod
+    def out_freq(feat_dim: int) -> int:
+        """Frequency rows of the output map for ``feat_dim`` input rows."""
+        return (feat_dim + 7) // 8
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -184,6 +273,30 @@ class ResNet(nn.Module):
         return x
 
 
+class ThinResNet(ResNet):
+    """8/16/32/64-channel trunk with a 7x7 stem; returns (B, C, T').
+
+    Known deviation, as ``pkr_tpu``'s (PARITY.md): the reference's
+    AvgPool2d((1,3)) + view runs only when the trunk's time axis is exactly
+    3 frames wide; the evident intent, a full frequency mean, runs at any
+    length.  The mean is taken in f32 (under autocast a mean of a bf16 map
+    would stay bf16)."""
+
+    def __init__(self, stage_sizes: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(stage_sizes, BasicBlock, base_width=8, stem_kernel=7,
+                         generator=generator)
+
+    @staticmethod
+    def out_freq(feat_dim: int) -> int:
+        return 1
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, F, T) [+ (B, T) mask] → (B, C, T/8)."""
+        return torch.mean(super().forward(x, mask).to(torch.float32), dim=2)
+
+
 def tiny_resnet(**kw) -> ResNet:
     """1-block-per-stage, 8-channel trunk for tests and smoke runs."""
     return ResNet([1, 1, 1, 1], base_width=8, **kw)
@@ -195,3 +308,23 @@ def resnet18(**kw) -> ResNet:
 
 def resnet34(**kw) -> ResNet:
     return ResNet([3, 4, 6, 3], **kw)
+
+
+def se_resnet34(**kw) -> ResNet:
+    return ResNet([3, 4, 6, 3], use_se=True, **kw)
+
+
+def thin_resnet34(**kw) -> ThinResNet:
+    return ThinResNet([3, 4, 6, 3], **kw)
+
+
+def resnet50(**kw) -> ResNet:
+    return ResNet([3, 4, 6, 3], Bottleneck, **kw)
+
+
+def resnet101(**kw) -> ResNet:
+    return ResNet([3, 4, 23, 3], Bottleneck, **kw)
+
+
+def resnet152(**kw) -> ResNet:
+    return ResNet([3, 8, 36, 3], Bottleneck, **kw)

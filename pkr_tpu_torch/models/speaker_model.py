@@ -1,8 +1,12 @@
 """The speaker-embedding model: trunk → stats pooling → 256-d embedding → head.
 
 Port of ``pkr_tpu/models/speaker_model.py`` (reference NeuralSpeakerModel):
-- the trunk is selectable and lives at ``res`` (the reference's name),
-- the frequency geometry is ``(feat_dim + 7) // 8``,
+- the trunk is selectable (``TRUNKS``: the ResNet family; ``DENSENETS``)
+  and lives at ``res`` (the reference's name),
+- fc1's input width is the trunk's channels × pooled statistics × its
+  output frequency rows: ``(feat_dim + 7) // 8`` for the 4-D ResNet maps,
+  1 for the (B, C, T') trunks (``thin_resnet34``, the DenseNets), whose
+  sequence gets a unit frequency axis before pooling,
 - heads: 'softmax' (bn1 + ReLU + Linear ``last``), 'AAM' (margin head on
   fc1, weight ``last.weight`` of shape (spk_num, emb_dim)), 'AAM-v1'
   (bn1 + ReLU, then the margin head),
@@ -23,7 +27,6 @@ mode they need on every call.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -31,6 +34,7 @@ from torch import nn
 
 from pkr_tpu_torch.device import DeviceLike, full_f32, resolve_device
 from pkr_tpu_torch.models import resnet as _resnet
+from pkr_tpu_torch.models.densenet import DENSENETS
 from pkr_tpu_torch.ops.aam import aam_logits
 from pkr_tpu_torch.ops.stats_pool import flatten_pooled, stats_pool
 
@@ -38,6 +42,11 @@ TRUNKS = {
     "tiny_resnet": _resnet.tiny_resnet,
     "resnet18": _resnet.resnet18,
     "resnet34": _resnet.resnet34,
+    "se_resnet34": _resnet.se_resnet34,
+    "thin_resnet34": _resnet.thin_resnet34,
+    "resnet50": _resnet.resnet50,
+    "resnet101": _resnet.resnet101,
+    "resnet152": _resnet.resnet152,
 }
 
 
@@ -51,14 +60,6 @@ class AAMWeight(nn.Module):
         nn.init.xavier_normal_(self.weight, generator=generator)
 
 
-def _dense(cin: int, cout: int, generator: Optional[torch.Generator] = None) -> nn.Linear:
-    """Linear with the reference's flax Dense init (lecun normal, zero bias)."""
-    lin = nn.Linear(cin, cout)
-    nn.init.normal_(lin.weight, std=1.0 / math.sqrt(cin), generator=generator)
-    nn.init.zeros_(lin.bias)
-    return lin
-
-
 class SpeakerModel(nn.Module):
     def __init__(self, spk_num: int, feat_dim: int = 40, pooling: str = "mean+std",
                  loss: str = "softmax", m: float = 0.2, s: float = 30.0,
@@ -66,8 +67,10 @@ class SpeakerModel(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if trunk not in TRUNKS:
-            raise ValueError(f"unknown trunk {trunk!r} (choose from {sorted(TRUNKS)})")
+        build = TRUNKS.get(trunk) or DENSENETS.get(trunk)
+        if build is None:
+            raise ValueError(f"unknown trunk {trunk!r} (choose from "
+                             f"{sorted(TRUNKS) + sorted(DENSENETS)})")
         if loss not in ("softmax", "AAM", "AAM-v1"):
             raise ValueError(f"unknown loss {loss!r}")
         if pooling not in ("mean", "mean+std"):
@@ -77,14 +80,14 @@ class SpeakerModel(nn.Module):
         self.spk_num, self.feat_dim, self.pooling = spk_num, feat_dim, pooling
         self.loss, self.m, self.s = loss, m, s
         self.trunk, self.emb_dim, self.dtype = trunk, emb_dim, dtype
-        self.res = TRUNKS[trunk](generator=generator)
+        self.res = build(generator=generator)
         n_stats = 2 if pooling == "mean+std" else 1
-        self.fc1 = _dense(self.res.out_channels * n_stats * ((feat_dim + 7) // 8), emb_dim,
-                          generator)
+        self.fc1 = _resnet._dense(
+            self.res.out_channels * n_stats * self.res.out_freq(feat_dim), emb_dim, generator)
         if loss in ("softmax", "AAM-v1"):
             self.bn1 = _resnet.BatchNorm(emb_dim)
         if loss == "softmax":
-            self.last = _dense(emb_dim, spk_num, generator)
+            self.last = _resnet._dense(emb_dim, spk_num, generator)
         else:
             self.last = AAMWeight(spk_num, emb_dim, generator)
         self.to(resolve_device(device))
@@ -101,6 +104,8 @@ class SpeakerModel(nn.Module):
         """(B, F, T) [+ (B, T) frame mask] → (B, emb_dim) embeddings
         (reference ``predict``)."""
         fmap = self._trunk(x, mask)
+        if fmap.ndim == 3:
+            fmap = fmap[:, :, None, :]  # (B, C, T') trunks → (B, C, 1, T')
         tmask = None
         if mask is not None:
             n_valid = self.res.valid_out_frames(torch.sum(mask.to(torch.int64), dim=-1))

@@ -10,7 +10,7 @@ semantics are the reference's; the storage is PyTorch's own:
   directory that is renamed into place, so a reader never sees a partial
   checkpoint.  It holds the model's ``state_dict()`` (the reference's
   names), the ``TrainState`` (momentum by parameter name, step, epoch,
-  best cv top-1) and the head's ``loss``;
+  best cv top-1), the head's ``loss`` and the model's ``trunk``;
 - ``<path>/latest`` holds the newest checkpoint's directory name (a legacy
   bare-epoch marker still resolves);
 - ``<path>/best`` is a copy of the best epoch's directory
@@ -24,8 +24,10 @@ that ``pkr_tpu``'s ``load_pretrained_variables`` loads.  There the softmax
 classifier is ``last/kernel`` and the AAM weight ``aam_weight``; in the port
 both are ``last.weight`` of shape (C, D).  A match by name and shape alone
 would copy a softmax classifier into an AAM weight, so each tensor is keyed
-by its ``pkr_tpu`` path, which the head's ``loss`` (saved with the
-checkpoint) decides.
+by its ``pkr_tpu`` path, which the head's ``loss`` and the ``trunk`` (both
+saved with the checkpoint) decide: the thin ResNet's stem is a bare conv and
+BatchNorm in ``pkr_tpu``, and the DenseNets carry torchvision's names.  A
+checkpoint that saved no ``trunk`` holds a ResNet-family model.
 """
 
 from __future__ import annotations
@@ -134,7 +136,8 @@ def save_checkpoint(path: str, model: torch.nn.Module, state: TrainState,
     payload = {"model": _host_copy(model.state_dict()),
                "momentum": _host_copy(state.momentum),
                "step": int(state.step), "epoch": epoch,
-               "best_acc1": float(state.best_acc1), "loss": model.loss}
+               "best_acc1": float(state.best_acc1), "loss": model.loss,
+               "trunk": model.trunk}
 
     def commit():
         global _EPILOGUE_ERROR
@@ -200,16 +203,39 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
 # ---------------------------------------------------------------------------
 
 
-def _reference_key(name: str, loss: str) -> Optional[Tuple[str, ...]]:
+def _densenet_key(parts: List[str]) -> Optional[Tuple[str, ...]]:
+    """torchvision's DenseNet names after ``res.features`` → ``pkr_tpu``'s
+    module path under ``_trunk``, with the leaf's module kind ('conv' or
+    'norm') last; None for other names."""
+    mod = parts[0]
+    if mod in ("conv0", "norm0", "norm5"):
+        kind = mod[:4]
+        path = {"conv0": ("stem",), "norm0": ("BatchNorm_0",),
+                "norm5": ("final_norm",)}[mod]
+        return path + (kind,)
+    if mod.startswith("transition") and parts[1] in ("norm", "conv"):
+        sub = "BatchNorm_0" if parts[1] == "norm" else "Conv_0"
+        return (mod, sub, parts[1])
+    if mod.startswith("denseblock") and parts[1].startswith("denselayer"):
+        kind, k = parts[2][:4], int(parts[2][4:])
+        if kind in ("norm", "conv") and k in (1, 2):
+            sub = f"{'BatchNorm' if kind == 'norm' else 'Conv'}_{k - 1}"
+            return (f"block{int(mod[10:])}_layer{int(parts[1][10:])}", sub, kind)
+    return None
+
+
+def _reference_key(name: str, loss: str, trunk: str) -> Optional[Tuple[str, ...]]:
     """A state-dict name → its ``pkr_tpu`` variable path (collection, module
     path..., leaf), or None for names ``pkr_tpu`` has no variable for
     (``num_batches_tracked``, unknown modules).  ``last.weight`` is the
     softmax head's ``last/kernel`` and the AAM heads' ``aam_weight``.
 
     Reference naming (model.py): res.conv1/res.bn1 stem; res.layerL.J.convK
-    / .bnK / .downsample.{0,1}; fc1; bn1 (head); last.  ``pkr_tpu``'s:
-    _trunk/stem/..., _trunk/layer{L}_{J}/ConvBN_{K-1}/..., fc1, bn1, last or
-    aam_weight."""
+    / .bnK / .downsample.{0,1} / .se.fc.{0,2}; fc1; bn1 (head); last.
+    ``pkr_tpu``'s: _trunk/stem/... (the thin trunk: _trunk/stem/kernel and
+    _trunk/BatchNorm_0), _trunk/layer{L}_{J}/ConvBN_{K-1}/... and
+    .../SEGate_0/Dense_{0,1}, fc1, bn1, last or aam_weight.  A DenseNet's
+    torchvision names (res.features...) map as ``convert`` maps them back."""
     parts = name.split(".")
     if parts[0] == "module":
         parts = parts[1:]
@@ -223,12 +249,25 @@ def _reference_key(name: str, loss: str) -> Optional[Tuple[str, ...]]:
         m = bn_leaf(leaf)
         return None if m is None else (m[0],) + mod + (m[1],)
 
+    thin = trunk == "thin_resnet34"
     try:
         if parts[0] == "res":
+            if parts[1] == "features":
+                mod = _densenet_key(parts[2:])
+                if mod is None:
+                    return None
+                *mod, kind = mod
+                leaf = parts[-1]
+                if kind == "conv":
+                    return (("params", "_trunk") + tuple(mod) + ("kernel",)
+                            if leaf == "weight" else None)
+                return bn(("_trunk",) + tuple(mod), leaf)
             if parts[1] == "conv1" and parts[2] == "weight":
-                return ("params", "_trunk", "stem", "Conv_0", "kernel")
+                return ("params", "_trunk", "stem") + (("kernel",) if thin
+                                                       else ("Conv_0", "kernel"))
             if parts[1] == "bn1":
-                return bn(("_trunk", "stem", "BatchNorm_0"), parts[2])
+                return bn(("_trunk", "BatchNorm_0") if thin
+                          else ("_trunk", "stem", "BatchNorm_0"), parts[2])
             if parts[1].startswith("layer"):
                 block = ("_trunk", f"layer{int(parts[1][5:])}_{int(parts[2])}")
                 sub = parts[3]
@@ -243,6 +282,10 @@ def _reference_key(name: str, loss: str) -> Optional[Tuple[str, ...]]:
                         return ("params",) + block + ("downsample", "Conv_0", "kernel")
                     if parts[4] == "1":
                         return bn(block + ("downsample", "BatchNorm_0"), parts[5])
+                if sub == "se" and parts[4] == "fc" and parts[6] == "weight":
+                    dense = {"0": "Dense_0", "2": "Dense_1"}.get(parts[5])
+                    if dense:
+                        return ("params",) + block + ("SEGate_0", dense, "kernel")
             return None
         if parts[0] == "fc1":
             return ("params", "fc1", {"weight": "kernel", "bias": "bias"}[parts[1]])
@@ -270,7 +313,7 @@ def import_torch_checkpoint(state_dict: Mapping[str, Any], model: torch.nn.Modul
     loaded = []
     for name, value in state_dict.items():
         key = name[len("module."):] if name.startswith("module.") else name
-        if _reference_key(key, model.loss) is None or key not in own:
+        if _reference_key(key, model.loss, model.trunk) is None or key not in own:
             if verbose and not name.endswith("num_batches_tracked"):
                 print(f"{name} is not in the model.")
             continue
@@ -289,12 +332,13 @@ def import_torch_checkpoint(state_dict: Mapping[str, Any], model: torch.nn.Modul
     return loaded
 
 
-def _tree(state_dict: Mapping[str, torch.Tensor], loss: str) -> Dict[str, Any]:
+def _tree(state_dict: Mapping[str, torch.Tensor], loss: str, trunk: str
+          ) -> Dict[str, Any]:
     """state dict → nested dict by ``pkr_tpu`` variable path, with
     (name, tensor) leaves."""
     tree: Dict[str, Any] = {}
     for name, t in state_dict.items():
-        path = _reference_key(name, loss)
+        path = _reference_key(name, loss, trunk)
         if path is None:
             continue
         node = tree
@@ -331,8 +375,9 @@ def load_pretrained(path: str, model: torch.nn.Module, which: str = "best",
             if target is None:
                 return []
     ck = _load(target)
-    src = _tree(ck["model"], ck["loss"])
-    dst = _tree(model.state_dict(), model.loss)
+    # a checkpoint that saved no trunk holds a ResNet-family model
+    src = _tree(ck["model"], ck["loss"], ck.get("trunk", "resnet34"))
+    dst = _tree(model.state_dict(), model.loss, model.trunk)
     loaded: List[str] = []
     n_skipped = 0
 

@@ -11,7 +11,10 @@
   softmax) through load_pretrained and pkr_tpu's load_pretrained_variables,
   and from a reference .pth through both import_torch_checkpoint: the same
   weights exactly, the same printed messages and counts, and a softmax
-  classifier never copied into the AAM weight.
+  classifier never copied into the AAM weight.  Softmax → AAM also for the
+  densenet62 and thin_resnet34 trunks, whose pkr_tpu paths differ from the
+  ResNet's (the checkpoint saves its trunk), and a checkpoint that saved no
+  trunk still warm-starts a ResNet as before.
 """
 
 import contextlib
@@ -32,6 +35,7 @@ from pkr_tpu_torch.train import (create_train_state, import_torch_checkpoint,
 
 from test_torch_train import (F, assert_metrics_match, assert_state_matches, batches,
                               make_pair, port_from, run_jax, run_port)
+from test_torch_zoo import jax_train_state
 
 
 def tiny(loss="AAM", spk=5, seed=0):
@@ -142,11 +146,52 @@ def _printed(fn, *args):
                                      (("AAM", 12), ("AAM", 10)),
                                      (("AAM", 12), ("softmax", 12))])
 def test_warm_start_loads_what_pkr_tpu_loads(tmp_path, src, dst):
+    _check_warm_start(tmp_path, src, dst, lambda loss, seed, spk: make_pair(
+        loss, seed=seed, spk=spk))
+
+
+@pytest.mark.parametrize("trunk", ["densenet62", "thin_resnet34"])
+def test_zoo_warm_start_loads_what_pkr_tpu_loads(tmp_path, trunk):
+    """softmax → AAM for the trunks whose pkr_tpu paths differ from the
+    ResNet's: the thin trunk's bare stem and the DenseNet's names."""
+    def pair(loss, seed, spk):
+        fm, jstate = jax_train_state(trunk, loss, spk, F, 32, seed)
+        return (fm, jstate) + port_from(jstate, loss, trunk, spk)
+
+    _check_warm_start(tmp_path, ("softmax", 12), ("AAM", 12), pair)
+    ck = torch.load(tmp_path / "port" / "ckpt_0" / "state.pt", weights_only=True)
+    assert ck["trunk"] == trunk
+
+
+def test_checkpoint_without_trunk_warm_starts_a_resnet(tmp_path):
+    """Checkpoints saved before the trunk was stored hold a ResNet-family
+    model: they warm-start as they did."""
+    _, _, tsrc, tsrc_state = make_pair("softmax", seed=4)
+    save_checkpoint(str(tmp_path / "new"), tsrc, tsrc_state, sync=True)
+    ck = torch.load(tmp_path / "new" / "ckpt_0" / "state.pt", weights_only=True)
+    del ck["trunk"]
+    (tmp_path / "old" / "ckpt_0").mkdir(parents=True)
+    torch.save(ck, tmp_path / "old" / "ckpt_0" / "state.pt")
+    (tmp_path / "old" / "latest").write_text("ckpt_0")
+    loaded = {}
+    for tag in ("new", "old"):
+        _, _, tdst, _ = make_pair("AAM", seed=5)
+        loaded[tag] = (load_pretrained(str(tmp_path / tag), tdst, verbose=False),
+                       weights(tdst))
+    assert loaded["old"][0] == loaded["new"][0] and "res.conv1.weight" in loaded["old"][0]
+    assert all(torch.equal(v, loaded["new"][1][k]) for k, v in loaded["old"][1].items())
+
+
+def _check_warm_start(tmp_path, src, dst, pair):
+    """A checkpoint of the ``src`` (loss, speakers) model warm-starts the
+    ``dst`` one: the port's load_pretrained against pkr_tpu's
+    load_pretrained_variables.  ``pair(loss, seed, spk)`` gives (flax model,
+    pkr_tpu TrainState, port model, port TrainState) of one state."""
     (src_loss, src_spk), (dst_loss, dst_spk) = src, dst
-    _, jsrc, tsrc, tsrc_state = make_pair(src_loss, seed=4, spk=src_spk)
+    _, jsrc, tsrc, tsrc_state = pair(src_loss, 4, src_spk)
     jax_save(str(tmp_path / "jax"), jsrc, sync=True)
     save_checkpoint(str(tmp_path / "port"), tsrc, tsrc_state, sync=True)
-    _, jdst, tdst, _ = make_pair(dst_loss, seed=5, spk=dst_spk)
+    _, jdst, tdst, _ = pair(dst_loss, 5, dst_spk)
     before = weights(tdst)
 
     variables = {"params": jdst.params, "batch_stats": jdst.batch_stats}

@@ -24,7 +24,8 @@ Stage by stage, the same inputs through both packages:
   scores within 1e-5, EER and minDCF within one trial's step.
 Then main through the port alone, mirroring tests/test_e2e.py: the full
 pipeline learns (EER < 0.35), resume runs only the next epoch, training
-from the card-resident cache, and the softmax_plda flow with PLDA scoring.
+from the card-resident cache, the softmax_plda flow with PLDA scoring, and
+stages 0–6 with a DenseNet trunk.
 """
 
 import dataclasses
@@ -454,6 +455,30 @@ def test_main_softmax_plda_flow_then_aam_warm_start(tmp_path):
               config=str(tmp_path / "cfg2.json"))
         res = json.load(open(os.path.join(exp2, "results.json")))
         assert 0.0 <= res["eer"] <= 1.0 and np.isfinite(res["min_dcf_p0.01"])
+
+
+def test_main_densenet_trunk_stages_0_to_6(tmp_path):
+    """A --config with a DenseNet trunk (densenet62, the flash head) runs
+    stages 0–6 through main; its checkpoints record the trunk."""
+    data, test = str(tmp_path / "data"), str(tmp_path / "test")
+    synth_corpus(data, n_spk=4, n_utt=6, seconds=1.0)
+    synth_corpus(test, n_spk=4, n_utt=2, seconds=1.0, seed=3)
+    t_u2s = DataDir.load(test, names=("utt2spk",))["utt2spk"]
+    with open(tmp_path / "trials", "w") as f:
+        f.writelines(f"{a} {b} {'target' if t_u2s[a] == t_u2s[b] else 'nontarget'}\n"
+                     for a in sorted(t_u2s) for b in sorted(t_u2s) if a < b)
+    cfg = tiny_cfg(epochs=1, flash_aam=True)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, trunk="densenet62"),
+                              data=DataConfig(min_frames=50, cv_fraction=0.25))
+    (tmp_path / "cfg.json").write_text(cfg.to_json())
+    exp = str(tmp_path / "exp")
+    _main("--data-dir", data, "--test-data-dir", test, "--trials", str(tmp_path / "trials"),
+          "--exp-dir", exp, config=str(tmp_path / "cfg.json"))
+    res = json.load(open(os.path.join(exp, "results.json")))
+    assert 0.0 <= res["eer"] <= 1.0 and np.isfinite(res["min_dcf_p0.01"])
+    ck = torch.load(os.path.join(exp, "checkpoints", "ckpt_1", "state.pt"), weights_only=True)
+    assert ck["trunk"] == "densenet62" and "res.features.norm5.weight" in ck["model"]
+    assert os.path.exists(os.path.join(exp, "scores.txt"))
 
 
 def test_unported_options_raise(corpus, tmp_path):
