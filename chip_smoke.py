@@ -108,6 +108,27 @@ Phases, one JSON line each:
           examples/s, conv-MFU (convolution FLOPs counted by forward hooks
           on nn.Conv2d) and a step's device ms and busy share of both; both
           kernels launched; the phase within 150 s;
+  parallel the port's parallelism (parallel/, the mesh paths of the train
+          step, the flash head, the cache, checkpoints): NCCL at world 1 —
+          the train phase's flash step (ResNet-34, B=256 x 200, 7325
+          speakers, bf16) through make_train_step(mesh=make_mesh()) equals
+          the meshless step bit for bit after 2 steps under deterministic
+          cuDNN (the meshless step twice is the control), with both
+          ms/step; then two ranks on the one card over gloo (NCCL refuses
+          two ranks on one device), each a process: (a) the class-sharded
+          flash head at B=256 x C=131072 x D=256 over a 1 x 2 mesh against
+          the one-process head on the whole weight (loss within 1e-4,
+          top-1/top-5 equal, dê and the gathered dW row by row within 1e-3
+          of their norms), both kernels launched on each rank; (b) two f32
+          ResNet-34 flash steps at a global B=256 (128 a rank, global-batch
+          BatchNorm; the trunk's β at 3, see _par_model) against one
+          process at B=256 (parameters at rtol 1e-3 / atol 1e-5, momentum
+          and running statistics within 1e-3 of their tensor's largest
+          entry, the ranks bit-identical); (c) one epoch
+          of ShardedCacheLoader through the bf16 flash step on a synthetic
+          corpus of 512 speakers x 2 utterances (a cut of the corpus
+          phase's 7325), each rank's crops from its own shard; (d)
+          dryrun_multichip(2); the phase within 150 s;
   kernels every kernel with its launches on the paths and its errors.
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
@@ -534,6 +555,70 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
     return row
 
 
+OFF_SHARD = {"minus_c": (-1,), "plus_c": (1,), "mixed": (-1, 1, 2, -3)}
+
+
+def check_offshard_case(torch, name, B, C, D, seed, how):
+    """Both kernels with every label outside [0, C): the labels a
+    class-sharded head hands a shard for rows whose target lies on another
+    (shifted by −C, by +C, or a mix of −3C..+2C, OFF_SHARD).  No column is a
+    target, so each row keeps its whole non-target gradient, as in the TPU
+    kernel, which masks by column only.  The forward against its plain
+    version: zy exactly 0, lse and mx within 5e-4, cnt (counted against zt,
+    the owner's pivot: here the in-range target's) apart only by classes
+    within 1e-4 of zt.  The backward: dê and dW row by row within ROW_TOL
+    of their own norm and within 1e-3 of the largest entry (+1e-6); a
+    backward that took a negative label for a padded row would zero the
+    rows of the −C and mixed cases, which planted_faults' zeroed rows
+    stand for."""
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.ops.aam import cosine_logits
+
+    emb, w, labels = _flash_inputs(torch, B, C, D, seed)
+    shifts = torch.tensor(OFF_SHARD[how], device=labels.device)
+    off = labels + C * shifts.repeat(B // len(shifts) + 1)[:B]
+    e_hat, _ = fa._normalize(emb)
+    zt = fa._margined_target_z(e_hat, w, labels, 0.2, 30.0)
+    got = fa.flash_aam_fwd(e_hat, w, off, zt)
+    torch.cuda.synchronize()
+    ref = fa.flash_aam_fwd_plain(e_hat, w, off, zt)
+    near = ((cosine_logits(e_hat, w) * 30.0 - zt[:, None]).abs() < 1e-4).sum(1)
+    row = {"phase": "kernel", "kernel": "both", "case": f"offshard_{how}_{name}", "B": B,
+           "C": C, "D": D, "label_range": [int(off.min()), int(off.max())],
+           "zy_zero": bool(not got[1].any() and not ref[1].any()),
+           "max_abs_err_lse": float((got[0] - ref[0]).abs().max()),
+           "max_abs_err_mx": float((got[2] - ref[2]).abs().max()),
+           "cnt_rows_apart": int((got[3] != ref[3]).sum()),
+           "tol": {"lse_mx": 5e-4, "cnt": "classes within 1e-4 of zt",
+                   "row_rel": ROW_TOL, "max_abs": "1e-3*max|ref| + 1e-6"}}
+    check(bool(((off < 0) | (off >= C)).all()), f"{name}: a label lies inside [0, C)")
+    check(row["zy_zero"], f"{name} {how}: a target column was found")
+    check(row["max_abs_err_lse"] <= 5e-4 and row["max_abs_err_mx"] <= 5e-4,
+          f"{name} {how}: lse/mx error {row['max_abs_err_lse']}, {row['max_abs_err_mx']}")
+    check(bool(((got[3] - ref[3]).abs() <= near).all()),
+          f"{name} {how}: rank counts differ beyond near-ties")
+    g = torch.full((B,), 1.0 / B, device=emb.device)
+    bgot = fa.flash_aam_bwd(e_hat, w, off, ref[0], g)
+    torch.cuda.synchronize()
+    bref = fa.flash_aam_bwd_plain(e_hat, w, off, ref[0], g)
+    for tag, gt, r in (("de", bgot[0], bref[0]), ("dw", bgot[1], bref[1])):
+        err, scale = float((gt - r).abs().max()), float(r.abs().max())
+        rel = row_rel_err(torch, gt, r)
+        row[f"max_abs_err_{tag}"], row[f"row_rel_err_{tag}"] = err, rel
+        check(bool(torch.isfinite(gt).all()), f"{name} {how}: non-finite {tag}")
+        check(rel <= ROW_TOL, f"{name} {how}: {tag} row error {rel} (a row the kernel "
+                              f"dropped has error 1)")
+        check(err <= 1e-3 * scale + 1e-6, f"{name} {how}: {tag} error {err} vs {scale}")
+        # every class and every example has a gradient of its own
+        check(bool((r.abs().amax(dim=1) > 0).all()), f"{name} {how}: a zero {tag} row")
+        faults = planted_faults(torch, gt, r, labels[:1] if tag == "dw" else None)
+        row[f"planted_{tag}"] = {k: v[0] for k, v in faults.items()}
+        for k, (f_rel, _) in faults.items():
+            check(f_rel > ROW_TOL, f"{name} {how}: the row check missed the planted {k}")
+    emit(row)
+    return row
+
+
 def consistency_inputs(torch, B, D, seed, exact):
     """One class row w (C = 1) and B unit embeddings, every label 0.
 
@@ -638,6 +723,11 @@ def phase_kernel(torch, smi_line):
                                              timed=False, confident=True))
     bwd_rows.append(check_flash_bwd_case(torch, "ragged_depth", 100, 7001, 37, seed=31,
                                          timed=False))
+    # labels off the shard (the class-sharded head's), at the train batch and
+    # on the chunked path
+    for i, how in enumerate(OFF_SHARD):
+        check_offshard_case(torch, "b256", TRAIN_B, SPK, 256, 50 + i, how)
+    check_offshard_case(torch, "ragged_d300", 100, 7001, 300, 53, "minus_c")
     for i, (B, D) in enumerate(((256, 256), (100, 37), (256, 512), (100, 300))):
         for exact in (True, False):
             check_consistency(torch, B, D, seed=40 + i, exact=exact)
@@ -2243,6 +2333,355 @@ def phase_zoo(torch, smi_line):
     return launches
 
 
+PAR = {"device": "cuda", "B": TRAIN_B, "T": TRAIN_T, "spk": SPK,
+       "C": 131072,         # the class-sharded head's speakers, two shards of 65536
+       "cache_spk": 512,    # the sharded cache's corpus: 512 speakers x 2 utterances
+       "trunk": "resnet34"}
+PAR_DP_STEPS = 2      # data-parallel steps held against one process
+PAR_BUDGET_S = 150.0
+
+
+def _sync(torch, cfg):
+    if cfg["device"] == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_head_inputs(torch, cfg):
+    """(emb (B, 256), W (C, 256), labels) on the device, from a seed:
+    embeddings half-way to their class row, labels over the whole range
+    (both class shards)."""
+    rng = np.random.default_rng(60)
+    w = rng.standard_normal((cfg["C"], 256), dtype=np.float32)
+    labels = rng.integers(0, cfg["C"], cfg["B"])
+    emb = 0.5 * w[labels] + rng.standard_normal((cfg["B"], 256), dtype=np.float32)
+    return tuple(torch.from_numpy(v).to(cfg["device"]) for v in (emb, w, labels))
+
+
+def _par_dp_inputs(cfg):
+    """The data-parallel check's batches (B x 40 x T), from a seed, on the
+    host."""
+    rng = np.random.default_rng(61)
+    return [(rng.standard_normal((cfg["B"], 40, cfg["T"]), dtype=np.float32),
+             rng.integers(0, cfg["spk"], cfg["B"])) for _ in range(PAR_DP_STEPS)]
+
+
+def _par_model(torch, cfg, dtype, beta=None):
+    """The flagship model from a seed; ``beta`` sets every trunk BatchNorm's
+    β.  The data-parallel check starts them at 3: at a random start with
+    β = 0 about half of the ReLU inputs sit at 0, where rounding picks the
+    branch, and two summation orders part by more than any bound could
+    tell from a fault (tests/test_torch_train.py's ResNet-34 case shifts β
+    the same way)."""
+    from pkr_tpu_torch.models import BatchNorm, SpeakerModel
+
+    model = SpeakerModel(cfg["spk"], 40, "mean+std", "AAM", trunk=cfg["trunk"], dtype=dtype,
+                         device=cfg["device"], generator=torch.Generator().manual_seed(62))
+    if beta is not None:
+        with torch.no_grad():
+            for mod in model.res.modules():
+                if isinstance(mod, BatchNorm):
+                    mod.bias.fill_(beta)
+    return model
+
+
+def _host_state(torch, model, state):
+    """Host copies of the model's state dict and the momentum."""
+    return ({k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()},
+            {k: v.detach().to("cpu", copy=True) for k, v in state.momentum.items()})
+
+
+def _sync_ms(torch, cfg, fn, iters):
+    """Mean wall ms of `iters` calls of fn, each ended by a synchronize."""
+    _sync(torch, cfg)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        _sync(torch, cfg)
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def _parallel_rank(corpus_root, cfg):
+    """One of two ranks on the one card (gloo): (a) the class-sharded head
+    on a 1 x 2 mesh, (b) two f32 ResNet-34 steps on a 2 x 1 mesh (B/2 rows
+    a rank), (c) one epoch of ShardedCacheLoader through the bf16 flash
+    step on the same mesh.  Every kernel count is 0 just before and read
+    just after."""
+    import torch
+
+    from pkr_tpu_torch.data import ShardedCacheLoader, ShardedDeviceFeatureCache
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.parallel import gather_rows, make_mesh
+    from pkr_tpu_torch.parallel.distributed import process_index
+    from pkr_tpu_torch.train import create_train_state, make_train_step
+
+    B, T, C = cfg["B"], cfg["T"], cfg["C"]
+    out = {"rank": process_index()}
+    emb, w, labels = _par_head_inputs(torch, cfg)
+    dp = _par_dp_inputs(cfg)
+    mesh_m, mesh_d = make_mesh(1, 2), make_mesh(2, 1)
+    fa.flash_aam_fwd.launches = 0
+    fa.flash_aam_bwd.launches = 0
+    t0 = time.perf_counter()
+
+    # (a) the class-sharded head
+    rows = C // 2
+    w_shard = w[mesh_m.model_index * rows:(mesh_m.model_index + 1) * rows].clone()
+    fn = fa.make_flash_aam_sharded(mesh_m, C, with_acc=True)
+
+    def head():
+        e = emb.clone().requires_grad_(True)
+        ws = w_shard.clone().requires_grad_(True)
+        loss, acc1, acc5 = fn(e, ws, labels)
+        return (loss, acc1, acc5) + torch.autograd.grad(loss, (e, ws))
+
+    loss, acc1, acc5, de, dw = head()
+    dw_full = gather_rows(dw, mesh_m, C)
+    out["head"] = {"loss": float(loss.detach()), "acc1": float(acc1), "acc5": float(acc5),
+                   "launches": [fa.flash_aam_fwd.launches, fa.flash_aam_bwd.launches]}
+    if out["rank"] == 0:
+        out["head"]["de"], out["head"]["dw"] = de.cpu(), dw_full.cpu()
+    del dw_full
+
+    # (b) data parallelism, f32 trunk: B/2 rows a rank
+    model = _par_model(torch, cfg, torch.float32, beta=3.0)
+    state = create_train_state(model)
+    step = make_train_step(model, flash_aam=True, device=cfg["device"], mesh=mesh_d)
+    half = slice(mesh_d.data_index * B // 2, (mesh_d.data_index + 1) * B // 2)
+    losses = []
+    for x, y in dp:
+        state, m = step(state, x[half], y[half], 0.1)
+        losses.append(float(m["loss"]))
+    sd, mom = _host_state(torch, model, state)
+    out["dp"] = {"losses": losses, "sd": sd, "momentum": mom, "step": int(state.step)}
+    x0, y0 = (torch.from_numpy(v[half]).to(cfg["device"]) for v in dp[0])
+    out["dp"]["ms_per_step"] = _sync_ms(torch, cfg, lambda: step(state, x0, y0, 0.1), 3)
+    del model, state, step
+
+    # (c) one epoch from the sharded cache, bf16 trunk
+    scp = os.path.join(corpus_root, "feats.scp")
+    u2id = {u: int(v) for u, v in (l.split() for l in
+                                   open(os.path.join(corpus_root, "utt2spkid")))}
+    t1 = time.perf_counter()
+    cache = ShardedDeviceFeatureCache.from_scp(scp, u2id, mesh_d, device=cfg["device"])
+    build_s = time.perf_counter() - t1
+    loader = ShardedCacheLoader(cache, B, T, seed=0)
+    mine = set(int(v) for v in cache.labels_per_shard[mesh_d.data_index])
+    model = _par_model(torch, cfg, torch.bfloat16)
+    state = create_train_state(model)
+    step = make_train_step(model, flash_aam=True, device=cfg["device"], mesh=mesh_d)
+    cache_losses, n_rows = [], 0
+    _sync(torch, cfg)
+    t1 = time.perf_counter()
+    for x, y in loader.epoch(0):
+        check(tuple(x.shape) == (B // 2, 40, T) and x.device.type == cfg["device"],
+              f"a sharded-cache batch of {tuple(x.shape)} on {x.device}")
+        check(set(y.tolist()) <= mine, "a sharded-cache label from another shard")
+        state, m = step(state, x, y, 0.1)
+        cache_losses.append(m["loss"])
+        n_rows += x.shape[0]
+    _sync(torch, cfg)
+    epoch_s = time.perf_counter() - t1
+    out["cache"] = {"batches": len(cache_losses), "rows": n_rows,
+                    "losses": [float(v) for v in cache_losses],
+                    "shard_utts": int(cache.n_utts[mesh_d.data_index]),
+                    "shard_bytes": cache.nbytes_per_shard, "build_s": build_s,
+                    "epoch_s": epoch_s,
+                    "ms_per_step": 1e3 * epoch_s / max(1, len(cache_losses))}
+    out["path_s"] = time.perf_counter() - t0
+    out["launches"] = {"flash_aam_fwd": fa.flash_aam_fwd.launches,
+                       "flash_aam_bwd": fa.flash_aam_bwd.launches}
+    out["head"]["ms"] = _sync_ms(torch, cfg, head, 3)  # after the counts were read
+    return out
+
+
+def _state_diff(torch, a, b):
+    """max |a − b| over every tensor of two {name: tensor} dicts."""
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def _par_world1(torch, cfg):
+    """NCCL (gloo off the card), world 1: the flagship flash step (bf16
+    trunk) through make_train_step(mesh=make_mesh()) against the meshless
+    step, two steps each from the same weights under deterministic cuDNN
+    (the meshless step twice is the control); then both steps' ms/step
+    with default cuDNN."""
+    import torch.distributed as dist
+
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.parallel import make_mesh
+    from pkr_tpu_torch.parallel.distributed import _free_port, initialize, shutdown
+    from pkr_tpu_torch.train import create_train_state, make_train_step
+
+    dev = cfg["device"]
+    os.environ["LOCAL_RANK"] = "0"
+    check(initialize(f"127.0.0.1:{_free_port()}", 1, 0, device=dev), "no group formed")
+    try:
+        one = torch.ones(1, device=dev)
+        dist.all_reduce(one)
+        want = "nccl" if dev == "cuda" else "gloo"
+        check(dist.get_backend() == want and float(one) == 1.0, f"{want} all_reduce")
+        model = _par_model(torch, cfg, torch.bfloat16)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        gen = torch.Generator(device=dev).manual_seed(63)
+        x = torch.randn((cfg["B"], 40, cfg["T"]), generator=gen, device=dev)
+        y = torch.randint(0, cfg["spk"], (cfg["B"],), generator=gen, device=dev)
+        mesh = make_mesh()
+        steps = {"mesh": make_train_step(model, flash_aam=True, device=dev, mesh=mesh),
+                 "meshless": make_train_step(model, flash_aam=True, device=dev)}
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        runs, launches = {}, {}
+        try:
+            for tag in ("meshless", "mesh", "meshless_again"):
+                model.load_state_dict(init)
+                st = create_train_state(model)
+                if tag == "mesh":  # the main path of this part: counts from 0
+                    fa.flash_aam_fwd.launches = fa.flash_aam_bwd.launches = 0
+                for _ in range(2):
+                    st, m = steps[tag.replace("_again", "")](st, x, y, 0.1)
+                if tag == "mesh":
+                    _sync(torch, cfg)
+                    launches = {"flash_aam_fwd": fa.flash_aam_fwd.launches,
+                                "flash_aam_bwd": fa.flash_aam_bwd.launches}
+                runs[tag] = _host_state(torch, model, st)
+        finally:
+            torch.backends.cudnn.deterministic = det
+        control = max(_state_diff(torch, runs["meshless"][i], runs["meshless_again"][i])
+                      for i in (0, 1))
+        diff = max(_state_diff(torch, runs["mesh"][i], runs["meshless"][i]) for i in (0, 1))
+        speed = {}
+        for tag, step in steps.items():
+            model.load_state_dict(init)
+            st, _ = step(create_train_state(model), x, y, 0.1)
+            _sync(torch, cfg)
+            times = []
+            for _ in range(3):
+                times.append(_sync_ms(torch, cfg, lambda: step(st, x, y, 0.1), 4))
+            speed[tag] = float(np.median(times))
+        row = {"mesh": mesh.shape, "backend": dist.get_backend(),
+               "max_abs_diff_mesh_vs_meshless": diff, "control_meshless_twice": control,
+               "ms_per_step": speed, "launches": launches, "tol": "bitwise, as the control"}
+        check(diff <= control, f"world-1 mesh step vs meshless: {diff} (control {control})")
+        check(min(launches.values()) >= 1, f"the world-1 mesh step launched {launches}")
+        return row
+    finally:
+        shutdown()
+
+
+def phase_parallel(torch, smi_line, cfg=PAR):
+    """The port's parallelism on the one card (see the docstring): NCCL at
+    world 1; two gloo ranks on the card for the class-sharded head, data
+    parallelism and the sharded cache; dryrun_multichip(2).  ``cfg`` sets
+    the device and the sizes (the defaults are the card's and the
+    flagship's)."""
+    import tempfile
+
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.parallel.distributed import spawn
+    from pkr_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pkr_tpu_torch.train import create_train_state, make_train_step
+
+    dev = cfg["device"]
+    t_phase = time.perf_counter()
+    world1 = _par_world1(torch, cfg)
+
+    # the one-process references, before the ranks start
+    emb, w, labels = _par_head_inputs(torch, cfg)
+    e = emb.clone().requires_grad_(True)
+    wt = w.clone().requires_grad_(True)
+    loss, acc1, acc5 = fa.flash_aam_loss_acc(e, wt, labels)
+    de_ref, dw_ref = (g.cpu() for g in torch.autograd.grad(loss, (e, wt)))
+    head_ref = {"loss": float(loss.detach()), "acc1": float(acc1), "acc5": float(acc5)}
+    del emb, w, e, wt
+    model = _par_model(torch, cfg, torch.float32, beta=3.0)
+    state = create_train_state(model)
+    step = make_train_step(model, flash_aam=True, device=dev)
+    ref_losses = []
+    for x, y in _par_dp_inputs(cfg):
+        state, m = step(state, x, y, 0.1)
+        ref_losses.append(float(m["loss"]))
+    sd_ref, mom_ref = _host_state(torch, model, state)
+    x0, y0 = (torch.from_numpy(v).to(dev) for v in _par_dp_inputs(cfg)[0])
+    ref_ms = _sync_ms(torch, cfg, lambda: step(state, x0, y0, 0.1), 3)
+    del model, state, step, x0, y0
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="pkr_parallel_") as root:
+        write_corpus(root, seed=4, n_spk=cfg["cache_spk"], split=False)
+        t0 = time.perf_counter()
+        ranks = spawn(_parallel_rank, 2, args=(root, cfg), device=dev, backend="gloo",
+                      timeout=PAR_BUDGET_S)
+        spawn_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device=dev, backend="gloo", timeout=PAR_BUDGET_S)
+    dry_s = time.perf_counter() - t0
+
+    # (a) the class-sharded head against the one-process head
+    got = ranks[0]["head"]
+    head = {"loss_abs_err": abs(got["loss"] - head_ref["loss"]),
+            "acc": [got["acc1"], got["acc5"]], "acc_ref": [head_ref["acc1"], head_ref["acc5"]],
+            "row_rel_err_de": row_rel_err(torch, got["de"], de_ref),
+            "row_rel_err_dw": row_rel_err(torch, got["dw"], dw_ref),
+            "max_abs_err_de": float((got["de"] - de_ref).abs().max()),
+            "max_abs_err_dw": float((got["dw"] - dw_ref).abs().max()),
+            "launches_by_rank": [r["head"]["launches"] for r in ranks],
+            "ms_by_rank": [r["head"]["ms"] for r in ranks],
+            "tol": {"loss": 1e-4, "acc": "equal", "row_rel": ROW_TOL,
+                    "max_abs": "1e-3*max|ref| + 1e-6"}}
+    check(head["loss_abs_err"] <= 1e-4, f"class-sharded head loss {head}")
+    check(head["acc"] == head["acc_ref"], f"class-sharded head top-1/top-5 {head}")
+    for tag, r in (("de", de_ref), ("dw", dw_ref)):
+        check(head[f"row_rel_err_{tag}"] <= ROW_TOL, f"class-sharded {tag}: {head}")
+        check(head[f"max_abs_err_{tag}"] <= 1e-3 * float(r.abs().max()) + 1e-6,
+              f"class-sharded {tag}: {head}")
+    for r in ranks:
+        check(min(r["head"]["launches"]) >= 1, f"rank {r['rank']}: a kernel never launched "
+                                               f"in the class-sharded head")
+        check(min(r["launches"].values()) >= 1, f"rank {r['rank']}: {r['launches']}")
+    # (b) two data-parallel steps against one process: parameters at rtol
+    # 1e-3 / atol 1e-5, momentum and BatchNorm statistics within 1e-3 of
+    # their tensor's largest entry (+1e-6), the ranks bit-identical
+    dp = {"losses": ranks[0]["dp"]["losses"], "losses_ref": ref_losses,
+          "ms_per_step_2_ranks": [r["dp"]["ms_per_step"] for r in ranks],
+          "ms_per_step_1_process": ref_ms, "worst_over_bound": {}}
+    check(np.allclose(dp["losses"], ref_losses, rtol=2e-4, atol=2e-4), f"dp losses {dp}")
+    for part, ref in (("sd", sd_ref), ("momentum", mom_ref)):
+        got_d = ranks[0]["dp"][part]
+        check(_state_diff(torch, got_d, ranks[1]["dp"][part]) == 0.0,
+              f"the two ranks' {part} differ")
+        worst = 0.0
+        for k, r in ref.items():
+            if k.endswith("num_batches_tracked"):
+                check(torch.equal(got_d[k], r), k)
+                continue
+            d = (got_d[k] - r).abs()
+            if part == "sd" and ".running_" not in k:
+                bound = 1e-5 + 1e-3 * r.abs()
+            else:
+                bound = torch.full_like(r, 1e-3 * float(r.abs().max()) + 1e-6)
+            worst = max(worst, float((d / bound).max()))
+            check(bool((d <= bound).all()), f"dp {part} {k}: {float(d.max())}")
+        dp["worst_over_bound"][part] = worst
+    # (c) the sharded cache's epoch
+    cache = [r["cache"] for r in ranks]
+    check(all(c["batches"] >= 1 and np.isfinite(c["losses"]).all() for c in cache),
+          f"sharded cache epoch {cache}")
+    check(len({c["batches"] for c in cache}) == 1, "the ranks' epochs differ in length")
+    check(sum(c["shard_utts"] for c in cache) == cfg["cache_spk"] * CORPUS_UTTS_PER_SPK,
+          "the shards do not hold the corpus once")
+    launches = {k: sum(r["launches"][k] for r in ranks) + world1["launches"][k]
+                for k in ("flash_aam_fwd", "flash_aam_bwd")}
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "parallel", "world1": world1, "head": head, "dp": dp, "cache": cache,
+          "dryrun": dry, "launches": launches,
+          "launches_by_rank": [r["launches"] for r in ranks],
+          "rank_path_s": [r["path_s"] for r in ranks], "spawn_s": spawn_s,
+          "dryrun_s": dry_s, "phase_s": phase_s, "card": smi_line})
+    check(phase_s <= PAR_BUDGET_S, f"the parallel phase took {phase_s:.1f} s")
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
@@ -2282,6 +2721,7 @@ def main():
         recipe_launches, clean_stage1_per_s = phase_recipe(torch, smi_line)
         phase_augment(torch, smi_line, clean_stage1_per_s)
         zoo_launches = phase_zoo(torch, smi_line)
+        parallel_launches = phase_parallel(torch, smi_line)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2294,14 +2734,16 @@ def main():
                        "train": train_launches["flash_aam_fwd"],
                        "corpus": corpus_launches["flash_aam_fwd"],
                        "recipe": recipe_launches["flash_aam_fwd"],
-                       "zoo": zoo_launches["flash_aam_fwd"]},
+                       "zoo": zoo_launches["flash_aam_fwd"],
+                       "parallel": parallel_launches["flash_aam_fwd"]},
                       rows, rows[0], ("max_abs_err_lse", "max_abs_err_zy")),
         _kernel_entry("flash_aam_bwd", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
                       "pkr_tpu/ops/flash_aam.py:197",
                       {"train": train_launches["flash_aam_bwd"],
                        "corpus": corpus_launches["flash_aam_bwd"],
                        "recipe": recipe_launches["flash_aam_bwd"],
-                       "zoo": zoo_launches["flash_aam_bwd"]},
+                       "zoo": zoo_launches["flash_aam_bwd"],
+                       "parallel": parallel_launches["flash_aam_bwd"]},
                       bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"))]
     emit({"kernels": kernels})
     print(smi_line, flush=True)

@@ -15,14 +15,19 @@ obvious counterpart, and it imports neither JAX nor anything of ``pkr_tpu``:
 - ``pkr_tpu_torch.data``      samplers, host loaders, the card-resident
                               quantized feature cache, speed perturbation
 - ``pkr_tpu_torch.train``     train state and SGD, the train and eval steps
-                              (dense and flash heads), the epoch loop,
-                              checkpoints with resume and warm starts
+                              (dense and flash heads; one process or a
+                              mesh), the epoch loop, checkpoints with
+                              resume and warm starts
 - ``pkr_tpu_torch.eval``      extraction, cosine scoring, cohort S-norm,
                               LDA/PLDA, trial files, EER/minDCF
 - ``pkr_tpu_torch.config``    the typed Config tree (JSON in and out)
 - ``pkr_tpu_torch.recipes``   presets, corpus builders and the stage-gated
                               CLI ``python -m pkr_tpu_torch.recipes.run``
-- ``pkr_tpu_torch.utils``     training meters, progress logging, profiling
+- ``pkr_tpu_torch.parallel``  process groups (one process a card), the
+                              (data, model) mesh, the class-sharding rule,
+                              the multi-rank dry run
+- ``pkr_tpu_torch.utils``     training meters, progress logging, profiling,
+                              the job runner and the multi-host launchers
 - ``pkr_tpu_torch.convert``   flax variables (and a mid-training
                               ``TrainState``) → the port's state dict
 

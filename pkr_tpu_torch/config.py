@@ -2,9 +2,8 @@
 
 A copy of ``pkr_tpu/config.py`` for the port, built on the port's own
 ``FbankConfig``, ``FrontendConfig`` and ``VadConfig``.  Every field is kept,
-including those the port does not act on yet (``train.model_parallel`` and
-``data``'s augmentation-pool fields), so that a JSON written by either
-package's ``Config.to_json`` loads unchanged in the other.
+so that a JSON written by either package's ``Config.to_json`` loads
+unchanged in the other.
 
 Replaces the reference's three config tiers — recipe shell variables
 (run_aam_v2.sh:26-43), parse_options.sh flag plumbing, and per-binary Kaldi
@@ -55,7 +54,7 @@ class TrainConfig:
     keep_last_checkpoints: int = 0  # prune old per-epoch dirs (0 = keep all)
     profile_dir: Optional[str] = None  # torch.profiler trace of steady steps
     profile_steps: int = 10
-    model_parallel: int = 1  # classifier tensor parallel (not in the port yet)
+    model_parallel: int = 1  # ranks a class-sharded flash head spans
 
 
 @dataclass(frozen=True)

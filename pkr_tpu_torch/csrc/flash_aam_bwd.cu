@@ -101,9 +101,15 @@ __device__ __forceinline__ float dlogit(float cos, bool is_tgt, float lse, float
   return __fmul_rn(__fmul_rn(__fsub_rn(p, is_tgt ? 1.0f : 0.0f), dz), g);
 }
 
-// Label, lse and g of the two batch rows whose logits this thread forms
-// (rows row0 + 16 * (w % 4 / 2) + lane / 4 + {0, 8}); label -1 past B.
+// Validity, label, lse and g of the two batch rows whose logits this thread
+// forms (rows row0 + 16 * (w % 4 / 2) + lane / 4 + {0, 8}).  A row is valid
+// iff it lies inside the batch (r < B); its label may lie anywhere.  A
+// class-sharded head passes shard-local labels, y - shard * C, which lie
+// outside [0, C) on every shard but the target's: such a row has no target
+// column here and keeps its whole non-target gradient, as the TPU kernel
+// (which masks by column only) gives it.
 struct Rows {
+  bool ok[2];
   int lab[2];
   float lse[2], g[2];
 };
@@ -116,7 +122,8 @@ __device__ __forceinline__ Rows row_data(const int* __restrict__ labels,
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + 16 * ((threadIdx.x >> 5 & 3) >> 1) + ((threadIdx.x & 31) >> 2) + 8 * h;
     const bool ok = r < B;
-    rd.lab[h] = ok ? labels[r] : -1;
+    rd.ok[h] = ok;
+    rd.lab[h] = ok ? labels[r] : 0;
     rd.lse[h] = ok ? lse[r] : 0.0f;
     rd.g[h] = ok ? g[r] : 0.0f;
   }
@@ -142,7 +149,7 @@ __device__ __forceinline__ void a_tile(const float (&dot)[4], const float* rinv,
       const int cls = 8 * cosine_ntile(warp) + 2 * (lane & 3) + q;
       const int c = col0 + cls;
       float a = 0.0f;
-      if (rd.lab[h] >= 0 && c < C) {
+      if (rd.ok[h] && c < C) {
         const float ri = rinv[cls];
         a = dlogit(__fmul_rn(dot[2 * h + q], ri), c == rd.lab[h], rd.lse[h], rd.g[h], mg);
         if (SCALE) a = __fmul_rn(a, ri);

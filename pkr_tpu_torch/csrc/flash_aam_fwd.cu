@@ -80,7 +80,11 @@ __device__ __forceinline__ RowState shfl_xor(const RowState& a, int mask) {
 
 // The labels, target logits and online states of the two batch rows whose
 // logits this thread forms: rows row0 + 16 * (w % 4 / 2) + lane / 4 + 8 h
-// of the tile, as cosine_dots lays out dot (label -1 past B).
+// of the tile, as cosine_dots lays out dot.  A row past B gets label -1 and
+// its state is never written (write_states); a row inside B may carry any
+// label: one outside [0, C) (a class-sharded head's shard-local label for a
+// target on another shard) matches no column, so the row has no target term
+// and counts every class against its zt.
 struct Rows {
   int lab[2];
   float ztr[2];

@@ -1,6 +1,6 @@
 """Card-resident quantized feature cache: sample training batches on the card.
 
-Port of the single-card half of ``pkr_tpu/data/device_cache.py``.  The whole
+Port of ``pkr_tpu/data/device_cache.py``.  The whole
 training feature set is stored in device memory as uint8 codes with
 per-(utterance, mel-bin) percentile tables — the same 3-piece quantization
 as Kaldi's CompressedMatrix, 1 byte a value — and each training step
@@ -13,8 +13,10 @@ loader's cyclic tiling for a shorter one.  The random starts come from (B,)
 uniform draws handed in as a tensor, so a test can give both packages the
 same numbers.  Round-trip error equals the CM codec's (tested).
 
-The sharded cache (``ShardedDeviceFeatureCache``, ``ShardedCacheLoader``)
-waits for the port of the mesh.
+Over a process mesh, ``ShardedDeviceFeatureCache`` splits the corpus
+round-robin over the data axis, each rank holding only its shard on its
+card, and ``ShardedCacheLoader`` draws each rank's share of a global batch
+from its own shard: no feature crosses a card boundary either.
 """
 
 from __future__ import annotations
@@ -197,5 +199,124 @@ class DeviceCacheLoader:
         n = len(idx) // self.batch_size
         for b in range(n):
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            u = torch.rand((len(sel),), generator=gen, device=dev)
+            yield self.cache.sample_batch(sel, u, self.chunk)
+
+
+class ShardedDeviceFeatureCache:
+    """The quantized corpus split over a mesh's data axis, each rank holding
+    its own shard on its card (``pkr_tpu``'s holds every shard in one
+    process, one a device).
+
+    Utterance i (in the caller's order) belongs to shard i mod n_data, at
+    position i // n_data there: ``pkr_tpu``'s round-robin.  Every rank knows
+    every shard's utterances, labels and count (host lists, for the
+    samplers); only its own shard's codes and percentile tables are
+    quantized and put on the card.  ``sample_batch`` takes ids into this
+    rank's shard and the (B_local,) uniform draws of the crops' starts."""
+
+    def __init__(self, shard: DeviceFeatureCache, data_index: int,
+                 utts_per_shard: List[List[str]], labels_per_shard: List[np.ndarray]):
+        self.shard = shard  # this rank's DeviceFeatureCache
+        self.data_index = data_index
+        self.utts_per_shard = utts_per_shard
+        self.labels_per_shard = labels_per_shard
+        self.n_utts = np.asarray([len(u) for u in utts_per_shard])  # per shard
+
+    @staticmethod
+    def build(mats: Dict[str, np.ndarray], labels: Dict[str, int], mesh,
+              device: DeviceLike = None) -> "ShardedDeviceFeatureCache":
+        n = int(mesh.n_data)
+        utts = list(mats)  # CALLER order — the sampler indexes the scp order
+        if len(utts) < n:
+            raise ValueError(f"the sharded cache needs at least one utterance per data "
+                             f"shard: got {len(utts)} for a {n}-way data axis")
+        shards = [utts[d::n] for d in range(n)]
+        mine = shards[mesh.data_index]
+        shard = DeviceFeatureCache.build({u: mats[u] for u in mine},
+                                         {u: labels[u] for u in mine}, device)
+        return ShardedDeviceFeatureCache(
+            shard, mesh.data_index, shards,
+            [np.asarray([labels[u] for u in s], np.int64) for s in shards])
+
+    @staticmethod
+    def from_scp(scp_path: str, utt2spkid: Dict[str, int], mesh,
+                 device: DeviceLike = None) -> "ShardedDeviceFeatureCache":
+        """Reads only this rank's utterances of the scp."""
+        from pkr_tpu_torch.io import kaldi_ark
+
+        with open(scp_path) as f:
+            entries = [line.strip().split(None, 1) for line in f if line.strip()]
+        n = int(mesh.n_data)
+        if len(entries) < n:
+            raise ValueError(f"the sharded cache needs at least one utterance per data "
+                             f"shard: got {len(entries)} for a {n}-way data axis")
+        shards = [[u for u, _ in entries[d::n]] for d in range(n)]
+        mats = {u: kaldi_ark.read_mat(rx) for u, rx in entries[mesh.data_index::n]}
+        shard = DeviceFeatureCache.build(mats, utt2spkid, device)
+        return ShardedDeviceFeatureCache(
+            shard, mesh.data_index, shards,
+            [np.asarray([utt2spkid[u] for u in s], np.int64) for s in shards])
+
+    @property
+    def nbytes_per_shard(self) -> int:
+        return self.shard.nbytes
+
+    def sample_batch(self, local_utt_ids, u: torch.Tensor, seq_len: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's share of a global batch: crops of its shard's
+        utterances ``local_utt_ids`` (B_local,) at the draws ``u`` (B_local,),
+        decoded on its card, and their labels."""
+        return self.shard.sample_batch(local_utt_ids, u, seq_len)
+
+
+class ShardedCacheLoader:
+    """train_and_validate-compatible loader over a ShardedDeviceFeatureCache:
+    this rank's B_local = batch_size / n_data rows of each global batch.
+
+    Each shard runs its own BalancedRepetitionSampler over its utterances
+    with seed ``seed + d`` (per-shard balance approximates the global
+    balance, the utterances being dealt round-robin), and an epoch has as
+    many batches as the shortest shard's sampler fills: ``pkr_tpu``'s
+    shards, seeds and ids (:meth:`step_ids` gives the global ids of each
+    step, segment d indexing into shard d).  The crops' uniform draws come
+    from a generator on the card seeded by (seed, epoch, shard), in place of
+    ``pkr_tpu``'s JAX key stream."""
+
+    def __init__(self, cache: ShardedDeviceFeatureCache, batch_size: int,
+                 chunk: int = 200, seed: int = 0, max_per_class: int = 500):
+        from pkr_tpu_torch.data.sampler import BalancedRepetitionSampler
+
+        n = len(cache.utts_per_shard)
+        if batch_size % n:
+            raise ValueError(f"batch {batch_size} does not split over {n} data shards")
+        self.cache = cache
+        self.batch_size = batch_size
+        self.b_local = batch_size // n
+        self.chunk = chunk
+        self.seed = seed
+        self.samplers = [BalancedRepetitionSampler(cache.utts_per_shard[d],
+                                                   cache.labels_per_shard[d], max_per_class)
+                         for d in range(n)]
+
+    def batches_per_epoch(self) -> int:
+        return min(len(s) for s in self.samplers) // self.b_local
+
+    def step_ids(self, epoch: int):
+        """The global ids of each step of the epoch, (batch_size,) int32:
+        shard d's B_local ids at [d·B_local, (d + 1)·B_local)."""
+        per_shard = [s.epoch_indices(epoch, self.seed + d)
+                     for d, s in enumerate(self.samplers)]
+        for b in range(self.batches_per_epoch()):
+            yield np.concatenate([p[b * self.b_local:(b + 1) * self.b_local]
+                                  for p in per_shard]).astype(np.int32)
+
+    def epoch(self, epoch: int):
+        d = self.cache.data_index
+        dev = self.cache.shard.codes.device
+        seed = (((self.seed * 0x9E3779B1 + epoch) & 0xFFFFFFFF) << 16) | d
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        for ids in self.step_ids(epoch):
+            sel = ids[d * self.b_local:(d + 1) * self.b_local]
             u = torch.rand((len(sel),), generator=gen, device=dev)
             yield self.cache.sample_batch(sel, u, self.chunk)

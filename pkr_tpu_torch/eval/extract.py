@@ -1,9 +1,13 @@
 """Embedding extraction.
 
 Port of ``make_embed_fn`` and ``extract_embeddings`` from
-``pkr_tpu/eval/extract.py`` without the mesh: masked, length-bucketed
-batches go through ``SpeakerModel.embed`` on one card, and every utterance
-is embedded once.  A batch comes as float features or, from an
+``pkr_tpu/eval/extract.py``: masked, length-bucketed batches go through
+``SpeakerModel.embed`` on one card, and every utterance is embedded once.
+``pkr_tpu``'s ``mesh=`` path splits each batch over a host's devices; here
+a card is a process, so several cards split the utterances instead: each
+rank embeds the shard its ``EvalLoader(process_index, process_count)``
+yields, on its own card, and writes its own ark (``recipes/run.py``'s
+``run_extract``).  A batch comes as float features or, from an
 ``EvalLoader`` over CompressedMatrix arks, as its uint8 codes and
 percentile tables, dequantized on the card (a quarter of the f32 bytes
 cross the host link).

@@ -23,6 +23,7 @@ from pkr_tpu_torch.models.resnet import (
     resnet101,
     resnet152,
     se_resnet34,
+    set_batch_norm_group,
     thin_resnet34,
     tiny_resnet,
 )
@@ -39,6 +40,7 @@ __all__ = [
     "resnet101",
     "resnet152",
     "se_resnet34",
+    "set_batch_norm_group",
     "thin_resnet34",
     "tiny_resnet",
     "DENSENETS",

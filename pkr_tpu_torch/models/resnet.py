@@ -32,6 +32,8 @@ train mode it normalizes with the biased batch variance and stages the
 batch statistics; :func:`commit_batch_stats` folds them into the running
 statistics with the biased variance, or drops them (the train step's NaN
 guard).  Torch's ``BatchNorm2d`` would fold in the unbiased variance.
+Over a process mesh a BatchNorm normalizes with the statistics of the
+global batch, as ``pkr_tpu``'s does under pjit (:func:`set_batch_norm_group`).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.distributed as dist
 from torch import nn
 
 
@@ -52,6 +55,25 @@ def _conv(cin: int, cout: int, k: int, stride: int,
     return conv
 
 
+class _GroupSum(torch.autograd.Function):
+    """x summed over a process group, differentiable: the gradient of each
+    rank's input is the gradient of the sum summed over the group (every
+    rank's loss depends on every rank's input through the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 of (B, C) or (B, C, H, W), with flax's semantics.
 
@@ -60,7 +82,19 @@ class BatchNorm(nn.Module):
     statistics alone: it stages the batch's (mean, biased variance) in
     ``staged`` for :func:`commit_batch_stats`.  The state-dict names are
     torch's (``weight``, ``bias``, ``running_mean``, ``running_var``,
-    ``num_batches_tracked``), so checkpoints move by name as before."""
+    ``num_batches_tracked``), so checkpoints move by name as before.
+
+    ``group`` (None: this process's batch) is the data group of a process
+    mesh: train mode then normalizes with the global batch's statistics,
+    flax's under pjit.  The per-channel sums and the count are all-reduced
+    with autograd, so every rank's gradient sees the whole batch.  The mean
+    is E[x] and the variance the biased E[(x − E[x])²], in two passes (two
+    all-reduces): flax forms E[x²] − E[x]², equal up to rounding, which in
+    f32 loses the variance's digits where |E[x]| is many times the
+    deviation (a ReLU block's output).  The count is global, so a batch of
+    one is a global batch of one, and every rank stages the same
+    statistics.  (Torch's ``SyncBatchNorm`` folds in the unbiased
+    variance.)"""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -71,11 +105,31 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.int64))
         self.staged = None
+        self.group = None
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the data group's global batch."""
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        dims = [0] + list(range(2, x.ndim))
+        xf = x.to(torch.float32)
+        c = x.shape[1]
+        n = torch.full((1,), float(x.numel() // c), device=x.device)
+        sums = _GroupSum.apply(torch.cat([xf.sum(dims), n]), self.group)
+        count = sums[c].detach()
+        mean = sums[:c] / count
+        d = xf - mean.view(shape)
+        var = _GroupSum.apply((d * d).sum(dims), self.group) / count
+        y = d * torch.rsqrt(var + self.eps).view(shape) * self.weight.view(shape) \
+            + self.bias.view(shape)
+        self.staged = (mean.detach(), var.detach())
+        return y.to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if self.group is not None:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         if n == 1:
             # F.batch_norm refuses one value per channel in train mode; flax
@@ -110,6 +164,15 @@ def commit_batch_stats(model: nn.Module, ok: torch.Tensor) -> None:
             buf.copy_(torch.where(ok, mu * buf + (1.0 - mu) * stat, buf))
         mod.num_batches_tracked += ok.to(torch.int64)
         mod.staged = None
+
+
+def set_batch_norm_group(model: nn.Module, group) -> None:
+    """Set the data group (None: each process's own batch) of every
+    :class:`BatchNorm` in ``model``: the trunk's, the DenseNets' and the
+    head's ``bn1``."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.group = group
 
 
 def zero_time_pad(x: torch.Tensor, n_valid: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Flash AAM-softmax loss: margin + online-softmax CE over class tiles.
 
-Port of ``pkr_tpu/ops/flash_aam.py`` without the mesh.  The dense head
+Port of ``pkr_tpu/ops/flash_aam.py``.  The dense head
 materializes (B, n_spk) cosine logits; at large speaker counts that tensor
 dominates the step's memory traffic.  The flash head streams class tiles
 instead and keeps per example only the online state (lse, zy, mx, cnt):
@@ -24,6 +24,12 @@ kernels are held against on the card.  :func:`flash_aam_loss` and
 :func:`flash_aam_loss_acc` are differentiable in ``emb`` and ``weight``
 through one ``torch.autograd.Function``, the counterpart of the reference's
 two ``jax.custom_vjp`` functions.
+
+Over a process mesh (``parallel/mesh.py``), :func:`make_flash_aam_sharded`
+composes the same two kernels with explicit collectives, in ``pkr_tpu``'s
+two regimes: the weight whole on every rank, or its class rows split over
+the ``model`` axis, each rank running the kernels on its shard with
+shard-local labels and merging the online states over ``model``.
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from pkr_tpu_torch.device import full_f32
 from pkr_tpu_torch.ops import _native
@@ -57,7 +65,9 @@ def _margined_target_z(e_hat: torch.Tensor, weight: torch.Tensor,
                        labels: torch.Tensor, m: float, s: float) -> torch.Tensor:
     """The target class's margined, scaled logit via a (B, D) gather +
     row-dot — the pivot the kernel's online rank count compares against.
-    Same normalization and margin formulas as the kernel."""
+    Same normalization and margin formulas as the kernel.  ``labels`` must
+    lie in [0, C): a class-sharded caller clips them and masks the rows
+    whose target lives on another shard."""
     w_y = weight.index_select(0, labels).to(torch.float32)  # (B, D)
     w_hat = w_y / torch.sqrt(torch.clamp(torch.sum(w_y * w_y, dim=1, keepdim=True),
                                          min=1e-24))
@@ -363,3 +373,129 @@ def reference_aam_loss(emb: torch.Tensor, weight: torch.Tensor,
     logits = aam_logits(emb, weight, labels, m, s)
     logp = torch.log_softmax(logits, dim=-1)
     return -torch.mean(torch.gather(logp, 1, labels.to(torch.int64)[:, None]))
+
+
+# ---------------------------------------------------------------------------
+# the head over a process mesh
+# ---------------------------------------------------------------------------
+
+
+def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+    """In-place all_reduce over ``group``; the identity where it is None (an
+    axis of one rank)."""
+    if group is not None:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+class _FlashAAMSharded(torch.autograd.Function):
+    """The flash head over a mesh (``pkr_tpu``'s ``_sm_fwd``/``_sm_bwd``
+    under ``shard_map``).  Forward: with a class-sharded weight, the pivot
+    zt comes from the owning shard (a clipped gather, masked, summed over
+    ``model``), each rank runs the forward kernel on its shard with
+    shard-local labels, and the states merge over ``model`` (lse by its
+    maximum and then the sum of exp, zy and cnt by sum, mx by maximum);
+    loss and both accuracies are means over ``data``.  Backward: g =
+    gloss / (B_local · n_data), the backward kernel on the shard, dê summed
+    over ``model`` (class-sharded) and dW over ``data``."""
+
+    @staticmethod
+    def forward(ctx, emb, weight, labels, mesh, c_local, sharded, m, s, tile):
+        e_hat, e_norm = _normalize(emb.to(torch.float32))
+        w = weight.to(torch.float32)
+        if w.shape[0] != c_local:
+            raise ValueError(f"weight has {w.shape[0]} rows, this rank's shard "
+                             f"{c_local}")
+        y = labels.to(device=e_hat.device, dtype=torch.int64)
+        if sharded:
+            y = y - mesh.model_index * c_local
+            in_range = (y >= 0) & (y < c_local)
+            zt = torch.where(in_range, _margined_target_z(
+                e_hat, w, torch.clamp(y, 0, c_local - 1), m, s), 0.0)
+            _all_reduce(zt, dist.ReduceOp.SUM, mesh.model_group)
+        else:
+            zt = _margined_target_z(e_hat, w, torch.clamp(y, 0, c_local - 1), m, s)
+        lse, zy, mx, cnt = flash_aam_fwd(e_hat, w, y, zt, m, s, tile)
+        if sharded and mesh.model_group is not None:
+            peak = _all_reduce(torch.stack([lse, mx]), dist.ReduceOp.MAX,
+                               mesh.model_group)
+            sums = _all_reduce(torch.stack([torch.exp(lse - peak[0]), zy, cnt]),
+                               dist.ReduceOp.SUM, mesh.model_group)
+            lse, mx = peak[0] + torch.log(sums[0]), peak[1]
+            zy, cnt = sums[1], sums[2]
+        out = torch.stack([torch.mean(lse - zy), _acc_from(zy, mx), _acc5_from(cnt)])
+        _all_reduce(out, dist.ReduceOp.SUM, mesh.data_group)
+        out = out / mesh.n_data
+        ctx.save_for_backward(e_hat, e_norm, w, y, lse)
+        ctx.consts = (mesh, sharded, m, s, tile, emb.dtype, weight.dtype)
+        loss, acc, acc5 = (out[i].clone() for i in range(3))
+        ctx.mark_non_differentiable(acc, acc5)
+        return loss, acc, acc5
+
+    @staticmethod
+    def backward(ctx, gloss, _gacc, _gacc5):
+        e_hat, e_norm, w, y, lse = ctx.saved_tensors
+        mesh, sharded, m, s, tile, emb_dtype, w_dtype = ctx.consts
+        B = e_hat.shape[0]
+        g = (gloss.to(torch.float32) / (B * mesh.n_data)).expand(B).contiguous()
+        de_hat, dw = flash_aam_bwd(e_hat, w, y, lse, g, m, s, tile)
+        if sharded:
+            _all_reduce(de_hat, dist.ReduceOp.SUM, mesh.model_group)
+        _all_reduce(dw, dist.ReduceOp.SUM, mesh.data_group)
+        proj = torch.sum(de_hat * e_hat, dim=1, keepdim=True)
+        de = (de_hat - proj * e_hat) / e_norm
+        return (de.to(emb_dtype), dw.to(w_dtype), None, None, None, None, None, None,
+                None)
+
+
+def make_flash_aam_sharded(mesh, n_classes: int, m: float = 0.2, s: float = 30.0,
+                           tile: int = DEFAULT_TILE,
+                           weight_sharded: Optional[bool] = None,
+                           with_acc: bool = False):
+    """The flash loss over a process mesh: loss_fn(emb, weight, labels) →
+    the global mean loss, or (loss, top-1, top-5) with ``with_acc``, each
+    the same on every rank.
+
+    ``emb`` (B_local, D) and ``labels`` (B_local,) are this rank's share of
+    the global batch (ranks of one data row hold the same share); ``weight``
+    is, by the regime:
+
+    - **whole** on every rank (default where the mesh has no ``model`` axis
+      over 1 or ``n_classes`` does not divide it): each rank runs the
+      kernels over every class; dW is summed over ``data`` in the backward
+      (the reference's DDP layout);
+    - **class-sharded** (``weight_sharded``, default where ``n_classes``
+      divides ``n_model``; ``parallel.shard_params`` makes it): rank m holds
+      rows [m·C/n_model, (m + 1)·C/n_model) and runs the kernels over them
+      with shard-local labels; the online softmax merges over ``model`` in
+      two collectives of (B,) vectors, dê is summed over ``model`` and dW
+      over ``data``.  The (B, C) logits exist nowhere, and no rank holds the
+      whole weight.
+
+    The top-1 and top-5 equal the dense head's: the maxima merge by maximum
+    and the rank counts, each shard's against the one global pivot, by
+    sum."""
+    n_model = int(mesh.n_model)
+    if weight_sharded is None:
+        weight_sharded = n_model > 1 and n_classes % n_model == 0
+    if weight_sharded and n_classes % n_model:
+        raise ValueError(f"the class-sharded flash head needs n_classes % n_model == 0, "
+                         f"got {n_classes} % {n_model}")
+    c_local = n_classes // n_model if weight_sharded else n_classes
+
+    def loss_acc_fn(emb, weight, labels):
+        return _FlashAAMSharded.apply(emb, weight, labels, mesh, c_local,
+                                      bool(weight_sharded), m, s, tile)
+
+    if with_acc:
+        return loss_acc_fn
+    return lambda emb, weight, labels: loss_acc_fn(emb, weight, labels)[0]
+
+
+def flash_aam_loss_sharded(emb: torch.Tensor, weight: torch.Tensor,
+                           labels: torch.Tensor, mesh, m: float = 0.2,
+                           s: float = 30.0, tile: int = DEFAULT_TILE) -> torch.Tensor:
+    """The data-parallel (whole-weight) flash loss over a mesh; see
+    :func:`make_flash_aam_sharded` for the regimes."""
+    return make_flash_aam_sharded(mesh, weight.shape[0], m, s, tile,
+                                  weight_sharded=False)(emb, weight, labels)

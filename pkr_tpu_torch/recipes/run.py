@@ -1,4 +1,4 @@
-"""Stage-gated recipe driver of the port, on one card.
+"""Stage-gated recipe driver of the port, on one card or on several.
 
 Port of ``pkr_tpu/recipes/run.py``: the Python CLI that replaces the
 reference's bash recipe stack (run.sh / run_aam_v2.sh / feature_pre.sh /
@@ -23,8 +23,16 @@ Stages:
 ``--device`` (default: the card) is where the stages' tensors live; without
 a card and without ``--device cpu``, ``main`` raises.  Stage 1 mixes a data
 dir's ``utt2aug`` copies on the card from MUSAN pools (``--musan-dir``) and
-RIRS_NOISES room sets (``--rir-dir``).  One process on one card: the
-class-sharded head (``train.model_parallel > 1``; ROADMAP.md A.11) raises.
+RIRS_NOISES room sets (``--rir-dir``).
+
+Several cards: one process a card, started by ``utils/cluster.py``
+(``launch_hosts``, ``slurm_script``) with the environment contract of
+``parallel/distributed.py`` (COORDINATOR_ADDRESS, NUM_PROCESSES,
+PROCESS_ID, LOCAL_RANK); ``main`` joins the group first.  Stages 0, 1, 2,
+5 and 6 are file work that rank 0 does once on the shared exp dir; stages 3
+and 4 run on every rank (training over a (data, model) mesh with
+``train.model_parallel`` ranks a class shard, extraction of each rank's
+utterance shard into ``<name>.<rank>``); a barrier closes every stage.
 """
 
 from __future__ import annotations
@@ -399,9 +407,32 @@ def build_model(cfg_model, num_spk: int, device: DeviceLike = None,
                         dtype=dtype, device=device, generator=generator)
 
 
+class _TileToBatch:
+    """Sampler wrapper: cycles a too-small split's indices up to one full
+    mesh-divisible batch (see the cv-loader comment in run_train)."""
+
+    def __init__(self, sampler, batch: int):
+        self._sampler, self._batch = sampler, batch
+
+    def __len__(self):
+        return max(len(self._sampler), self._batch)
+
+    def epoch_indices(self, epoch, seed, process_index=0, process_count=1):
+        idx = self._sampler.epoch_indices(epoch, seed, process_index, process_count)
+        if 0 < len(idx) < self._batch:
+            idx = np.resize(np.asarray(idx), self._batch)
+        return idx
+
+
 def run_train(cfg, feat_dir: str, exp_dir: str, device: DeviceLike = None) -> None:
+    """Stage 3 over the (data, model) mesh of every process
+    (``train.model_parallel`` ranks a model row): ``train.batch_size`` is
+    the global batch, each data shard's loader yields its share, and the
+    flash head's weight is class-sharded where the rule splits it."""
     from pkr_tpu_torch.data import (BalancedRepetitionSampler, FeatureSource,
                                     SpeakerBalancedSampler, TrainLoader)
+    from pkr_tpu_torch.parallel import batch_sharding, make_mesh, shard_params
+    from pkr_tpu_torch.parallel.distributed import process_count, process_index
     from pkr_tpu_torch.train import create_train_state, train_and_validate
     from pkr_tpu_torch.train.checkpoint import (import_torch_checkpoint,
                                                 load_pretrained,
@@ -410,14 +441,14 @@ def run_train(cfg, feat_dir: str, exp_dir: str, device: DeviceLike = None) -> No
                                                 wait_for_checkpoints)
     from pkr_tpu_torch.utils.logging import ProgressLogger
 
-    if cfg.train.model_parallel > 1:
-        raise ValueError("train.model_parallel > 1 needs the class-sharded head, "
-                         "which the port does not have yet (ROADMAP.md A.11)")
     dev = resolve_device(device)
     os.makedirs(exp_dir, exist_ok=True)
     num_spk = int(open(os.path.join(feat_dir, "num_spk")).read())
     model = build_model(cfg.model, num_spk, dev,
                         generator=torch.Generator().manual_seed(cfg.train.seed))
+    mesh = make_mesh(n_model=cfg.train.model_parallel)
+    n_data = mesh.n_data
+    shard_index, shard_count = batch_sharding(mesh)
 
     def make_loader(split):
         scp = os.path.join(feat_dir, split, "feats.scp")
@@ -431,11 +462,27 @@ def run_train(cfg, feat_dir: str, exp_dir: str, device: DeviceLike = None) -> No
         chunk = (cfg.train.chunk_size[0] if len(cfg.train.chunk_size) == 1
                  else tuple(cfg.train.chunk_size))
         # a cv split smaller than the batch would silently validate nothing;
-        # on one process the batch never exceeds the split, so the
-        # reference's tiling of a too-small split (_TileToBatch, for a
-        # mesh-divisible batch) never applies
-        batch = max(1, min(cfg.train.batch_size, len(sampler)))
+        # the global batch stays divisible by the data axis, and each data
+        # shard's loader yields its share
+        batch = min(cfg.train.batch_size, len(sampler))
+        batch = max(n_data, batch // n_data * n_data) // n_data
+        if split == "cv" and len(sampler) // n_data < batch:
+            # fewer cv utts than the mesh-divisible minimum: tile indices up
+            # to one full batch — a few double-counted utterances beat zero
+            # validation batches (acc1 pinned at 0, no 'best' checkpoint)
+            sampler = _TileToBatch(sampler, batch)
         if cfg.train.device_cache and split == "train" and isinstance(chunk, int):
+            if n_data > 1:
+                # one process a card: each data shard holds its round-robin
+                # share of the corpus on its own card
+                from pkr_tpu_torch.data import (ShardedCacheLoader,
+                                                ShardedDeviceFeatureCache)
+
+                cache = ShardedDeviceFeatureCache.from_scp(scp, u2id, mesh, device=dev)
+                print(f"sharded device cache: {cache.nbytes_per_shard / 1e6:.1f} MB "
+                      f"on this card (shard {shard_index} of {shard_count})")
+                return ShardedCacheLoader(cache, batch * n_data, chunk,
+                                          seed=cfg.train.seed)
             from pkr_tpu_torch.data import DeviceCacheLoader, DeviceFeatureCache
 
             cache = DeviceFeatureCache.from_scp(scp, u2id, device=dev)
@@ -443,7 +490,8 @@ def run_train(cfg, feat_dir: str, exp_dir: str, device: DeviceLike = None) -> No
                   f"({len(src)} utterances)")
             return DeviceCacheLoader(cache, sampler, batch, chunk,
                                      seed=cfg.train.seed, device=dev)
-        return TrainLoader(src, labels, sampler, batch, chunk, seed=cfg.train.seed)
+        return TrainLoader(src, labels, sampler, batch, chunk, seed=cfg.train.seed,
+                           process_index=shard_index, process_count=shard_count)
 
     train_loader, cv_loader = make_loader("train"), make_loader("cv")
     state = create_train_state(model)
@@ -461,11 +509,19 @@ def run_train(cfg, feat_dir: str, exp_dir: str, device: DeviceLike = None) -> No
         else:
             load_pretrained(cfg.train.pretrained, model)
 
-    logger = ProgressLogger(jsonl_path=os.path.join(exp_dir, "train_metrics.jsonl"))
+    if cfg.train.flash_aam:
+        # the class rows of the flash head's weight over 'model', where the
+        # rule splits them (checkpoints hold the whole weight: restore first)
+        shard_params(model, mesh, state)
+    # the metrics are global, the same on every rank: rank 0 keeps the record
+    logger = ProgressLogger(
+        jsonl_path=os.path.join(exp_dir, "train_metrics.jsonl")
+        if process_index() == 0 else None,
+        prefix=f"[rank {process_index()}] " if process_count() > 1 else "")
 
     def on_epoch_end(state, epoch, metrics):
         save_checkpoint(ckpt_dir, model, state, is_best=metrics["is_best"],
-                        keep_last=cfg.train.keep_last_checkpoints)
+                        keep_last=cfg.train.keep_last_checkpoints, mesh=mesh)
 
     try:
         train_and_validate(model, state, train_loader, cv_loader,
@@ -478,10 +534,10 @@ def run_train(cfg, feat_dir: str, exp_dir: str, device: DeviceLike = None) -> No
                            save_every_steps=cfg.train.save_every_steps,
                            on_step_save=(lambda st: save_checkpoint(
                                ckpt_dir, model, st,
-                               keep_last=cfg.train.keep_last_checkpoints))
+                               keep_last=cfg.train.keep_last_checkpoints, mesh=mesh))
                            if cfg.train.save_every_steps else None,
                            profile_dir=cfg.train.profile_dir,
-                           profile_steps=cfg.train.profile_steps, device=dev)
+                           profile_steps=cfg.train.profile_steps, device=dev, mesh=mesh)
         wait_for_checkpoints()  # the last save is async; commit before returning
     finally:
         logger.close()
@@ -516,7 +572,10 @@ def run_extract(cfg, feat_dir: str, exp_dir: str, scp: str, out_name: str,
     from pkr_tpu_torch.io import write_text_vec_ark
     from pkr_tpu_torch.train.checkpoint import restore_checkpoint
 
+    from pkr_tpu_torch.parallel.distributed import barrier, process_count, process_index
+
     dev = resolve_device(device)
+    pi, pc = process_index(), process_count()
     num_spk = int(open(os.path.join(feat_dir, "num_spk")).read())
     model = build_model(cfg.model, num_spk, dev)
     ckpt_dir = os.path.join(exp_dir, "checkpoints")
@@ -526,15 +585,79 @@ def run_extract(cfg, feat_dir: str, exp_dir: str, scp: str, out_name: str,
     if restored is None:
         raise RuntimeError(f"no checkpoint to extract from in {ckpt_dir}")
     if subset:
-        scp = select_decode_subset(scp, subset, cfg.train.seed,
-                                   os.path.join(exp_dir, f"decode_{out_name}.scp"))
+        sub_path = os.path.join(exp_dir, f"decode_{out_name}.scp")
+        # rank 0 alone writes the subset scp (concurrent writes on shared
+        # storage could hand a peer a torn file); select_decode_subset always
+        # writes it, so after the barrier it reflects this run
+        if pi == 0:
+            select_decode_subset(scp, subset, cfg.train.seed, sub_path)
+        if pc > 1:
+            _wait_for_subset(sub_path, out_name)
+        scp = sub_path
+    # each rank extracts its utterance shard on its card into its own ark
+    # (the reference's nj-way decode wrote per-job arks the same way;
+    # load_text_vec_ark merges '<name>.<rank>' shards)
     loader = EvalLoader(FeatureSource(scp), batch_size=cfg.eval.batch_size,
                         quantum=cfg.eval.bucket_quantum, max_len=cfg.eval.max_len,
                         chunk_size=cfg.eval.chunk_size,
                         long_mode=cfg.eval.long_mode,
-                        transport=cfg.eval.transport)
+                        transport=cfg.eval.transport,
+                        process_index=pi, process_count=pc)
+    if pc > 1:
+        # a stale single-process ark, or shards of a wider old run, would be
+        # preferred or mixed in by the merge
+        if pi == 0:
+            import glob
+
+            stale = [os.path.join(exp_dir, out_name)]
+            for p in glob.glob(os.path.join(exp_dir, f"{out_name}.*")):
+                suffix = p.rsplit(".", 1)[1]
+                if suffix.isdigit() and int(suffix) >= pc:
+                    stale.append(p)
+            for p in stale:
+                if os.path.exists(p):
+                    os.unlink(p)
+        barrier(f"extract-clean-{out_name}")
     embs = extract_embeddings(model, loader, device=dev)
-    write_text_vec_ark(os.path.join(exp_dir, out_name), embs)
+    out = out_name if pc == 1 else f"{out_name}.{pi}"
+    write_text_vec_ark(os.path.join(exp_dir, out), embs)
+
+
+def _wait_for_subset(sub_path: str, out_name: str, timeout: float = 60.0) -> None:
+    """Freshness of rank 0's subset scp on every rank: the file's existence
+    is not enough (a previous run's satisfies it, and a stale NFS entry can
+    serve old content after rank 0's rename).  Rank 0 broadcasts a nonce of
+    this run and writes it to a stamp file after the scp; after the barrier
+    a peer waits until it reads exactly this nonce back."""
+    import time
+
+    from pkr_tpu_torch.parallel.distributed import barrier, broadcast_object, process_index
+
+    pi = process_index()
+    nonce = broadcast_object(int(np.random.default_rng().integers(1, 2 ** 62)))
+    stamp = sub_path + ".stamp"
+    if pi == 0:
+        tmp = stamp + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(str(nonce))
+        os.replace(tmp, stamp)
+    barrier(f"decode-subset-{out_name}")
+    if pi == 0:
+        return
+    deadline = time.time() + timeout
+    seen = None
+    while time.time() < deadline:
+        try:
+            with open(stamp) as f:
+                seen = f.read().strip()
+        except OSError:
+            seen = None
+        if seen == str(nonce):
+            return
+        time.sleep(0.5)  # shared-storage visibility lag
+    raise RuntimeError(f"rank {pi}: subset stamp {stamp} did not show this run's nonce "
+                       f"within {timeout:.0f}s of the decode-subset barrier; refusing to "
+                       "risk a stale subset scp (ranks would shard different lists)")
 
 
 def run_score(cfg, exp_dir: str, trials_path: str, enroll_ark: str,
@@ -648,11 +771,6 @@ def run_backend_stats(cfg, exp_dir: str, data_dir: str,
 
 
 def main(argv=None):
-    import dataclasses
-
-    from pkr_tpu_torch.config import Config
-    from pkr_tpu_torch.io import DataDir
-
     ap = argparse.ArgumentParser(description="pkr_tpu_torch recipe driver")
     ap.add_argument("--config", type=str, default=None, help="JSON config path")
     ap.add_argument("--preset", type=str, default=None,
@@ -679,7 +797,23 @@ def main(argv=None):
                          "'cpu' runs the plain PyTorch versions on the CPU)")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    from pkr_tpu_torch.parallel.distributed import initialize, shutdown
+
+    formed = initialize(device=args.device)  # the launchers' env contract
+    try:
+        return _main(args, resolve_device(args.device))  # this rank's card
+    finally:
+        if formed:
+            shutdown()
+
+
+def _main(args, dev) -> int:
+    import dataclasses
+
+    from pkr_tpu_torch.config import Config
+    from pkr_tpu_torch.io import DataDir
+    from pkr_tpu_torch.parallel.distributed import barrier, process_count, process_index
+
     if args.preset:
         from pkr_tpu_torch.recipes.presets import PRESETS
 
@@ -700,7 +834,7 @@ def main(argv=None):
 
     pools = None
     if ((args.musan_dir or args.rir_dir) and cfg.data.augment
-            and 1 in _stage_range(args)):
+            and 1 in _stage_range(args) and process_index() == 0):
         from pkr_tpu_torch.recipes.augment_dir import AugmentPools
 
         if args.musan_dir:
@@ -724,7 +858,16 @@ def main(argv=None):
             # additive noises composed) from the RIRS_NOISES room sets
             pools.attach_rir_set(args.rir_dir)
 
+    multi = process_count() > 1
+    # stages 0/1/2/5/6 are file work: with several processes rank 0 does
+    # them once on the shared exp dir; stages 3/4 run on every rank.  The
+    # barrier after each stage keeps the ranks in step (without it rank 0
+    # could score a half-written shard set)
+    host_only = {0, 1, 2, 5, 6}
     for stage in _stage_range(args):
+        if multi and stage in host_only and process_index() != 0:
+            barrier(f"stage-{stage}")
+            continue
         if stage == 0:
             for d in filter(None, (args.data_dir, args.test_data_dir)):
                 dd = DataDir.load(d)
@@ -783,6 +926,8 @@ def main(argv=None):
                             cohort_utt2spk=cohort_u2s,
                             enroll_spk2utt=enroll_s2u, device=dev)
             print(json.dumps(res, indent=2))
+        if multi:
+            barrier(f"stage-{stage}")
     return 0
 
 

@@ -19,6 +19,15 @@ semantics are the reference's; the storage is PyTorch's own:
 The model's own parameters are the training state's, so the signatures take
 the model beside the ``TrainState``.
 
+Over a process mesh every rank calls ``save_checkpoint`` with the mesh: a
+class-sharded AAM weight and its momentum are gathered whole over the
+model group first, so a checkpoint always holds the whole (C, D) weight
+and loads the same in one process or in several (``parallel.shard_params``
+cuts it again after a restore).  Only rank 0 writes the files and touches
+the marker, the best copy and the pruning; a barrier then keeps the ranks
+in step (``pkr_tpu``'s Orbax save has every process call it, and rank 0
+alone touch the marker, best and pruning state).
+
 The warm start from one of the port's checkpoints loads exactly the tensors
 that ``pkr_tpu``'s ``load_pretrained_variables`` loads.  There the softmax
 classifier is ``last/kernel`` and the AAM weight ``aam_weight``; in the port
@@ -104,9 +113,23 @@ def _host_copy(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
+def _whole_tensors(model: torch.nn.Module, state: TrainState, mesh
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(state dict, momentum) with a class-sharded AAM weight and its
+    momentum gathered whole over the mesh's model group (collective: every
+    rank of the group calls it)."""
+    from pkr_tpu_torch.parallel.mesh import gather_rows, weight_is_sharded
+
+    sd, mom = model.state_dict(), dict(state.momentum)
+    if mesh is not None and weight_is_sharded(model):
+        sd["last.weight"] = gather_rows(sd["last.weight"], mesh, model.spk_num)
+        mom["last.weight"] = gather_rows(mom["last.weight"], mesh, model.spk_num)
+    return sd, mom
+
+
 def save_checkpoint(path: str, model: torch.nn.Module, state: TrainState,
                     is_best: bool = False, keep_last: int = 0,
-                    sync: bool = False) -> None:
+                    sync: bool = False, mesh=None) -> None:
     """Save to <path>/ckpt_<epoch>; copy to <path>/best when is_best.
     keep_last > 0 prunes older ckpt_* dirs, retaining the newest N (plus
     'best').
@@ -120,8 +143,18 @@ def save_checkpoint(path: str, model: torch.nn.Module, state: TrainState,
     epoch (mid-epoch step-saves, a resumed epoch) goes to a versioned
     'ckpt_<e>.v<k>' dir, so a failure at any point leaves the marker
     pointing at an intact checkpoint.  is_best waits (the best copy needs
-    the committed files); sync=True waits too."""
+    the committed files); sync=True waits too.
+
+    mesh: every rank calls it; the whole weight is gathered, rank 0 alone
+    writes, and every rank leaves through a barrier (see the module's
+    docstring)."""
     global _COMMIT_THREAD
+    from pkr_tpu_torch.parallel.distributed import barrier, process_index
+
+    sd, momentum = _whole_tensors(model, state, mesh)
+    if process_index() != 0:
+        barrier("save_checkpoint")
+        return
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     wait_for_checkpoints()  # at most one save (+epilogue) in flight
@@ -133,8 +166,7 @@ def save_checkpoint(path: str, model: torch.nn.Module, state: TrainState,
             k += 1
         name = f"ckpt_{epoch}.v{k}"
     target = os.path.join(path, name)
-    payload = {"model": _host_copy(model.state_dict()),
-               "momentum": _host_copy(state.momentum),
+    payload = {"model": _host_copy(sd), "momentum": _host_copy(momentum),
                "step": int(state.step), "epoch": epoch,
                "best_acc1": float(state.best_acc1), "loss": model.loss,
                "trunk": model.trunk}
@@ -169,6 +201,7 @@ def save_checkpoint(path: str, model: torch.nn.Module, state: TrainState,
     else:
         _COMMIT_THREAD = threading.Thread(target=commit, daemon=True)
         _COMMIT_THREAD.start()
+    barrier("save_checkpoint")
 
 
 def _load(target: str) -> Dict[str, Any]:
@@ -182,7 +215,10 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
     """Restore 'latest', 'best', or an explicit epoch number into ``model``
     (strictly, by name) and return its ``TrainState`` on the model's
     device; None where the target does not exist.  ``state``, when given,
-    is the template whose momentum names the checkpoint must have."""
+    is the template whose momentum names the checkpoint must have.  The
+    checkpoint's AAM weight is whole: restore into a whole model, then
+    ``parallel.shard_params(model, mesh, state)`` cuts both to a rank's
+    rows."""
     wait_for_checkpoints()  # an in-flight save may be the target
     target = _resolve_target(os.path.abspath(path), which)
     if target is None or not os.path.exists(target):

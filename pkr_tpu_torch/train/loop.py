@@ -1,9 +1,10 @@
 """The train and eval steps and the epoch loop.
 
-Port of ``pkr_tpu/train/loop.py`` without the mesh: ``cross_entropy``,
-``topk_correct`` (top-k as accuracy.py:4-17 of the reference),
-``make_train_step`` with the dense head or the flash head,
-``make_eval_step`` and ``train_and_validate``.
+Port of ``pkr_tpu/train/loop.py``: ``cross_entropy``, ``topk_correct``
+(top-k as accuracy.py:4-17 of the reference), ``make_train_step`` with the
+dense head or the flash head, ``make_eval_step`` and ``train_and_validate``,
+each on one process or over a process mesh (``mesh=``,
+``parallel/mesh.py``).
 
 The model holds the parameters and the BatchNorm statistics and the
 ``TrainState`` the momentum, so a train step updates both in place and
@@ -11,6 +12,18 @@ returns the same state.  Each step sets the model's mode itself: the train
 step puts it in train mode (batch statistics), the eval step in eval mode
 (running statistics), so cv never runs with batch statistics whichever
 step ran last.
+
+Over a mesh each rank takes its share of the global batch (ranks of one
+data row the same share), and the step computes what ``pkr_tpu``'s pjit
+step computes over the whole batch: BatchNorm normalizes with the global
+batch's statistics (``models/resnet.py``), the loss and the metrics are
+global means, and the gradients are reduced explicitly, one flat
+all_reduce over the data group before the SGD update.  (``torch.autograd.grad``
+never runs ``AccumulateGrad``, so ``DistributedDataParallel``'s reducer
+hooks would not fire.)  The flash head over a mesh reduces its weight's
+gradient itself (``ops/flash_aam.py``: ``make_flash_aam_sharded``), so the
+flat all_reduce leaves it out.  The NaN guard decides on the global loss,
+so every rank commits or none does.
 """
 
 from __future__ import annotations
@@ -21,10 +34,13 @@ import time
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from pkr_tpu_torch.device import DeviceLike, as_device_tensor, full_f32, resolve_device
-from pkr_tpu_torch.models.resnet import commit_batch_stats
-from pkr_tpu_torch.ops.flash_aam import flash_aam_loss_acc
+from pkr_tpu_torch.models.resnet import commit_batch_stats, set_batch_norm_group
+from pkr_tpu_torch.ops.flash_aam import flash_aam_loss_acc, make_flash_aam_sharded
+from pkr_tpu_torch.parallel.mesh import weight_is_sharded
 from pkr_tpu_torch.train.state import TrainState, cosine_epoch_lr, sgd_step
 from pkr_tpu_torch.utils.logging import AverageMeter, ProgressLogger, profile_trace
 
@@ -44,10 +60,39 @@ def topk_correct(logits: torch.Tensor, labels: torch.Tensor, k: int) -> torch.Te
 def _check_flash(model, flash_aam: bool) -> None:
     if flash_aam and model.loss not in ("AAM", "AAM-v1"):
         raise ValueError(f"flash_aam needs an AAM-family head, got {model.loss!r}")
+    if weight_is_sharded(model) and not flash_aam:
+        raise ValueError("a class-sharded AAM weight needs the flash head "
+                         "(flash_aam=True); the dense head takes the whole weight")
+
+
+def _flash_head(model, mesh):
+    """(emb, weight, labels) → (loss, top-1, top-5) of ``model``'s flash
+    head: over a mesh, in the regime its weight is laid out in
+    (``parallel.shard_params``), with global means."""
+    if mesh is None:
+        return lambda e, w, y: flash_aam_loss_acc(e, w, y, model.m, model.s)
+    return make_flash_aam_sharded(mesh, model.spk_num, model.m, model.s,
+                                  weight_sharded=weight_is_sharded(model), with_acc=True)
+
+
+def _data_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t`` summed over the mesh's data group, in place (the identity
+    without a mesh or on a one-rank axis)."""
+    if mesh is not None and mesh.data_group is not None:
+        dist.all_reduce(t, group=mesh.data_group)
+    return t
+
+
+def _reduce_grads(grads, mesh):
+    """The gradients summed over the data group in one flat all_reduce."""
+    if not grads or mesh is None or mesh.data_group is None:
+        return grads
+    flat = _data_sum(_flatten_dense_tensors(grads), mesh)
+    return list(_unflatten_dense_tensors(flat, grads))
 
 
 def make_train_step(model, momentum: float = 0.9, weight_decay: float = 5e-4,
-                    flash_aam: bool = False, device: DeviceLike = None
+                    flash_aam: bool = False, device: DeviceLike = None, mesh=None
                     ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns train_step(state, feats (B, F, T), labels (B,), lr) →
     (state, {'loss', 'acc1', 'acc5'}), the metrics as f32 scalars on the
@@ -61,30 +106,48 @@ def make_train_step(model, momentum: float = 0.9, weight_decay: float = 5e-4,
     NaN guard: a non-finite loss commits nothing (parameters, momentum and
     BatchNorm running statistics keep their values) while the step counter
     still advances.  The guard is decided on the device, so a step never
-    waits for the host."""
+    waits for the host.
+
+    mesh (``parallel.make_mesh``): ``feats`` and ``labels`` are this rank's
+    share of the global batch, and the step is the global batch's (see the
+    module's docstring); its metrics are global.  The model's BatchNorms
+    take the mesh's data group.  A class-sharded AAM weight
+    (``parallel.shard_params``) needs the flash head."""
     _check_flash(model, flash_aam)
     dev = resolve_device(device)
     model.to(dev)
     names, params = zip(*model.named_parameters())
+    n_data = 1 if mesh is None else mesh.n_data
+    if mesh is not None:
+        set_batch_norm_group(model, mesh.data_group)
+    flash_fn = _flash_head(model, mesh) if flash_aam else None
+    # the gradients the step all-reduces: all but a mesh flash head's weight,
+    # whose backward sums its gradient over the data group itself
+    reduced = [i for i, n in enumerate(names)
+               if not (flash_aam and mesh is not None and n == "last.weight")]
 
     def train_step(state: TrainState, feats, labels, lr: float
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model.train()
         feats = as_device_tensor(feats, dev, torch.float32)
         labels = as_device_tensor(labels, dev, torch.int64)
-        if flash_aam:
+        if flash_aam:  # over a mesh: the global means
             emb = model.head_input(feats)
-            loss, acc1, acc5 = flash_aam_loss_acc(emb, model.last.weight, labels,
-                                                  model.m, model.s)
+            loss, acc1, acc5 = flash_fn(emb, model.last.weight, labels)
+            objective = loss
         else:
             logits = model(feats, labels)
-            loss = cross_entropy(logits, labels)
+            objective = cross_entropy(logits, labels) / n_data  # its share of the mean
             with torch.no_grad():
-                acc1 = topk_correct(logits, labels, 1) / labels.shape[0]
-                acc5 = topk_correct(logits, labels, 5) / labels.shape[0]
+                metrics = torch.stack([objective, topk_correct(logits, labels, 1),
+                                       topk_correct(logits, labels, 5)])
+                metrics[1:] /= labels.shape[0] * n_data
+                loss, acc1, acc5 = _data_sum(metrics, mesh).unbind()
         with full_f32():  # the backward's f32 convolutions and matmuls too
-            grads = torch.autograd.grad(loss, params)
+            grads = list(torch.autograd.grad(objective, params))
         with torch.no_grad():
+            for i, g in zip(reduced, _reduce_grads([grads[i] for i in reduced], mesh)):
+                grads[i] = g
             ok = torch.isfinite(loss)
             commit_batch_stats(model, ok)
             sgd_step(params, grads, [state.momentum[n] for n in names], lr, ok,
@@ -95,7 +158,7 @@ def make_train_step(model, momentum: float = 0.9, weight_decay: float = 5e-4,
     return train_step
 
 
-def make_eval_step(model, flash_aam: bool = False, device: DeviceLike = None
+def make_eval_step(model, flash_aam: bool = False, device: DeviceLike = None, mesh=None
                    ) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
     """Returns eval_step(feats (B, F, T), labels (B,)) → {'loss': CE·B,
     'n1': top-1 count, 'n5': top-5 count, 'n': B}, as f32 scalars.
@@ -103,27 +166,33 @@ def make_eval_step(model, flash_aam: bool = False, device: DeviceLike = None
     flash_aam routes the loss through the flash head (ops/flash_aam.py): the
     (B, n_spk) logits never exist, top-1 comes from the kernel's online max
     and top-5 from its online target-rank count.  The model is moved to
-    ``device``; every call puts it in eval mode."""
+    ``device``; every call puts it in eval mode.
+
+    mesh: ``feats`` and ``labels`` are this rank's share of a global batch,
+    and the sums are the global batch's (every rank of the data group must
+    call it for the same number of batches)."""
     _check_flash(model, flash_aam)
     dev = resolve_device(device)
     model.to(dev)
+    n_data = 1 if mesh is None else mesh.n_data
+    flash_fn = _flash_head(model, mesh) if flash_aam else None
 
     @torch.no_grad()
     def eval_step(feats, labels) -> Dict[str, torch.Tensor]:
         model.eval()
         feats = as_device_tensor(feats, dev, torch.float32)
         labels = as_device_tensor(labels, dev, torch.int64)
-        bsz = labels.shape[0]
+        bsz = labels.shape[0] * n_data
         n = torch.tensor(float(bsz), device=dev)
-        if flash_aam:
+        if flash_aam:  # over a mesh: the global means
             emb = model.head_input(feats)
-            loss, acc, acc5 = flash_aam_loss_acc(emb, model.last.weight, labels,
-                                                 model.m, model.s)
+            loss, acc, acc5 = flash_fn(emb, model.last.weight, labels)
             return {"loss": loss * bsz, "n1": acc * bsz, "n5": acc5 * bsz, "n": n}
         logits = model(feats, labels)
-        return {"loss": cross_entropy(logits, labels) * bsz,
-                "n1": topk_correct(logits, labels, 1),
-                "n5": topk_correct(logits, labels, 5), "n": n}
+        sums = _data_sum(torch.stack([cross_entropy(logits, labels) * labels.shape[0],
+                                      topk_correct(logits, labels, 1),
+                                      topk_correct(logits, labels, 5)]), mesh)
+        return {"loss": sums[0], "n1": sums[1], "n5": sums[2], "n": n}
 
     return eval_step
 
@@ -137,7 +206,7 @@ def train_and_validate(model, state: TrainState, train_loader, cv_loader,
                        flash_aam: bool = False, save_every_steps: int = 0,
                        on_step_save: Optional[Callable] = None,
                        profile_dir: Optional[str] = None, profile_steps: int = 10,
-                       device: DeviceLike = None) -> TrainState:
+                       device: DeviceLike = None, mesh=None) -> TrainState:
     """The epoch loop (train → validate → best-tracking on cv top-1).
 
     Loaders are duck-typed: ``loader.epoch(epoch)`` yields (feats, labels).
@@ -145,13 +214,17 @@ def train_and_validate(model, state: TrainState, train_loader, cv_loader,
     ``on_step_save(state)`` runs every ``save_every_steps`` steps and
     ``on_epoch_end(state, epoch, {'acc1', 'acc5', 'loss', 'is_best'})``
     after each cv pass.  profile_dir traces ``profile_steps`` steady steps
-    of the first epoch (steps 5 .. 5 + n) with ``torch.profiler``."""
+    of the first epoch (steps 5 .. 5 + n) with ``torch.profiler``.
+
+    mesh: the loaders yield this rank's share of each global batch (the
+    same number of batches on every rank), and the steps run over the mesh;
+    the cv metrics are the global batch's on every rank."""
     dev = resolve_device(device)
     log = logger or ProgressLogger()
     prof = contextlib.ExitStack()
     prof_window = (5, 5 + profile_steps)
-    train_step = make_train_step(model, momentum, weight_decay, flash_aam, dev)
-    eval_step = make_eval_step(model, flash_aam, dev)
+    train_step = make_train_step(model, momentum, weight_decay, flash_aam, dev, mesh)
+    eval_step = make_eval_step(model, flash_aam, dev, mesh)
     schedule = cosine_epoch_lr(lr0, epochs, lr_final)
 
     def sync():

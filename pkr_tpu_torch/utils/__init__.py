@@ -1,4 +1,5 @@
-"""Host utilities of the port: training meters, progress logging, tracing."""
+"""Host utilities of the port: training meters, progress logging, tracing,
+the local job runner and the multi-host launchers."""
 
 from pkr_tpu_torch.utils.logging import AverageMeter, ProgressLogger, profile_trace
 

@@ -298,3 +298,58 @@ def test_row_check_tells_tf32x3_from_one_tf32_product(monkeypatch):
         rel3 = _row_ok(t3, r)
         rel1 = _row_ok(t1, r, tol=np.inf)
         assert rel3 * 10 <= rel1 and rel1 > ROW_TOL, (rel3, rel1)
+
+
+# labels outside [0, C): the shard-local labels a class-sharded head hands
+# each class shard for the rows whose target lies on another shard
+OFF_SHARD = ("minus_c", "plus_c", "mixed")
+
+
+def off_shard_labels(labels: np.ndarray, C: int, how: str) -> np.ndarray:
+    shift = {"minus_c": np.full(len(labels), -1), "plus_c": np.full(len(labels), 1),
+             "mixed": np.asarray([-1, 1, 2, -3])[np.arange(len(labels)) % 4]}[how]
+    return labels + C * shift
+
+
+@pytest.mark.parametrize("how", OFF_SHARD)
+def test_off_shard_labels_match_pallas(how, monkeypatch):
+    """Every row's label outside [0, C) (shifted by −C, by +C, or a mix of
+    −3C..+2C), as a class shard sees the rows whose target lies elsewhere.
+    The Pallas kernels mask by column only, so such a row has no target
+    column (zy = 0) and keeps its whole non-target gradient; its rank count
+    runs against the owner's pivot zt (here the in-range target's).  The
+    port's plain forward and backward, their products in f32 and in
+    emulated 3×TF32, against the Pallas kernels in interpret mode: lse and
+    mx within 1e-4, zy exactly 0 in both, cnt equal, and every row of dê
+    and dW within 1e-3 of its own norm.  This pins the semantics that the
+    CUDA kernels' row test must meet (a kernel that takes a negative label
+    for a padded row zeroes these rows' gradients)."""
+    (emb, w, labels), tile = CASES["C300_tile256"]
+    C = w.shape[0]
+    lab = off_shard_labels(labels, C, how)
+    assert ((lab < 0) | (lab >= C)).all()
+    e_hat_j, _ = jax_flash._normalize(jnp.asarray(emb))
+    zt_j = jax_flash._margined_target_z(e_hat_j, jnp.asarray(w), jnp.asarray(labels),
+                                        0.2, 30.0)
+    ref_fwd = [np.asarray(r) for r in jax_flash._fwd_pallas(
+        e_hat_j, jnp.asarray(w), jnp.asarray(lab), 0.2, 30.0, tile, True, zt=zt_j)]
+    g = np.linspace(0.5, 1.5, len(lab)).astype(np.float32)
+    ref_bwd = [np.asarray(r) for r in jax_flash._bwd_pallas(
+        e_hat_j, jnp.asarray(w), jnp.asarray(lab), jnp.asarray(ref_fwd[0]), jnp.asarray(g),
+        0.2, 30.0, tile, True)]
+    # no target term anywhere, and every class keeps a gradient
+    assert not ref_fwd[1].any() and (np.abs(ref_bwd[1]).max(axis=1) > 0).all()
+    for mm in (port_flash._mm, mm_tf32x3):
+        monkeypatch.setattr(port_flash, "_mm", mm)
+        e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+        wt = torch.from_numpy(w)
+        zt = torch.from_numpy(np.asarray(zt_j))
+        got = [v.numpy() for v in port_flash.flash_aam_fwd(
+            e_hat, wt, torch.from_numpy(lab), zt, 0.2, 30.0, tile)]
+        for i in (0, 2):
+            np.testing.assert_allclose(got[i], ref_fwd[i], rtol=0, atol=1e-4)
+        assert not got[1].any()
+        np.testing.assert_array_equal(got[3], ref_fwd[3])
+        de, dw = _port_bwd(emb, w, lab, ref_fwd[0], g, tile, mm, monkeypatch)
+        _row_ok(de, ref_bwd[0])
+        _row_ok(dw, ref_bwd[1])

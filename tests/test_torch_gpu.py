@@ -22,7 +22,10 @@ gradients from the forward's own lse are exactly 0, at D <= 256 and at
 D > 256, where both stream the depth in chunks (D = 300, 512 and 1024 are
 held to the plain version in both directions).  The flash gradients
 against the dense head's autograd (cuBLAS f32) at rtol 2e-3, atol 1e-6 as
-tests/test_flash_aam.py, and row by row within 1e-3.
+tests/test_flash_aam.py, and row by row within 1e-3.  Labels outside
+[0, C), the shard-local labels of a class-sharded head, give no target
+column and every row's whole non-target gradient in both kernels, as in
+the plain versions (test_flash_aam_off_shard_labels_match_plain).
 """
 
 import numpy as np
@@ -30,6 +33,7 @@ import pytest
 import torch
 
 from pkr_tpu_torch.ops import flash_aam
+from pkr_tpu_torch.ops.aam import cosine_logits
 
 
 def _card():
@@ -167,6 +171,47 @@ def test_flash_aam_bwd_matches_plain(B, C, D, confident):
     keep[labels] = True
     fault[~keep] = 0.0
     assert _row_rel_err(fault, ref[1]) > 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("how", ["minus_c", "plus_c", "mixed"])
+@pytest.mark.parametrize("B,C,D", [(256, 7325, 256), (100, 2001, 300)])
+def test_flash_aam_off_shard_labels_match_plain(B, C, D, how):
+    """Labels outside [0, C), as a class-sharded head hands a shard the rows
+    whose target lies on another shard (every label shifted by −C, by +C,
+    or by a mix of −3C..+2C): both kernels against their plain versions,
+    at D = 256 and on the chunked path (D = 300).  No column is a target:
+    zy is exactly 0, lse and mx within 5e-4, and cnt, counted against zt
+    (the owner's pivot, here the in-range target's), apart only by classes
+    within 1e-4 of zt; every row of dê and dW
+    within 1e-3 of its own norm and the tensor within 1e-3 of its largest
+    entry (+1e-6).  A backward that took a negative label for a padded row
+    zeroes these rows (the −C and mixed cases)."""
+    dev = _card()
+    emb, w, labels = _bwd_inputs(dev, B, C, D, B + C + 1)
+    shift = {"minus_c": torch.full_like(labels, -1), "plus_c": torch.full_like(labels, 1),
+             "mixed": torch.tensor([-1, 1, 2, -3], device=dev).repeat(B // 4 + 1)[:B]}[how]
+    off = labels + C * shift
+    e_hat, _ = flash_aam._normalize(emb)
+    zt = flash_aam._margined_target_z(e_hat, w, labels, 0.2, 30.0)
+    got = flash_aam.flash_aam_fwd(e_hat, w, off, zt)
+    ref = flash_aam.flash_aam_fwd_plain(e_hat, w, off, zt)
+    torch.cuda.synchronize()
+    assert not bool(got[1].any()) and not bool(ref[1].any())
+    for i in (0, 2):
+        assert float((got[i] - ref[i]).abs().max()) <= 5e-4
+    # the rank counts part only by classes whose logit lies within rounding
+    # of zt (no class is a target: every logit is s·cos)
+    near = ((cosine_logits(e_hat, w) * 30.0 - zt[:, None]).abs() < 1e-4).sum(1)
+    assert bool(((got[3] - ref[3]).abs() <= near).all())
+    g = torch.full((B,), 1.0 / B, device=dev)
+    got = flash_aam.flash_aam_bwd(e_hat, w, off, ref[0], g)
+    torch.cuda.synchronize()
+    ref = flash_aam.flash_aam_bwd_plain(e_hat, w, off, ref[0], g)
+    for gt, r in zip(got, ref):
+        assert bool(torch.isfinite(gt).all())
+        assert _row_rel_err(gt, r) <= 1e-3
+        assert float((gt - r).abs().max()) <= 1e-3 * float(r.abs().max()) + 1e-6
 
 
 @pytest.mark.gpu

@@ -482,7 +482,10 @@ def test_main_densenet_trunk_stages_0_to_6(tmp_path):
 
 
 def test_unported_options_raise(corpus, tmp_path):
-    with pytest.raises(ValueError, match="A.11"):
+    """train.model_parallel = 2 is ported (tests/test_torch_parallel_recipe.py
+    trains it over two processes); one process cannot hold a 2-way model
+    axis, and says so."""
+    with pytest.raises(ValueError, match="model rows of 2"):
         trun.run_train(tiny_cfg(model_parallel=2), corpus["feats"], str(tmp_path),
                        device="cpu")
 
