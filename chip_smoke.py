@@ -8,20 +8,25 @@ Run from the root of a checkout, with no arguments:
 Phases, one JSON line each:
   env     the card's name, count and power limit (nvidia-smi);
   build   nvcc builds every kernel of the paths from csrc/, one nvcc per
-          source, all at once (seconds, ptxas registers and shared memory,
-          and the tensor-core HMMA instructions cuobjdump finds in each:
-          both kernels run on the tensor cores, so neither may have none);
+          source, all at once (seconds, ptxas registers, shared memory and
+          spills, and the tensor-core HMMA instructions cuobjdump finds in
+          each: both kernels run on the tensor cores, so neither may have
+          none; the backward's wide route may not spill);
   kernel  each kernel against its plain PyTorch version on the card, at the
-          shapes of the paths and beyond, D = 256 and the chunked D = 512 and
-          300 (a gradient row by row, each row within 1e-3 of its own norm,
-          with planted faults the check must reject; the backward also with
-          every target p ≈ 0.993 against the plain version in f64, at D = 37,
-          and twice for the same bits), with its time, the plain version's
-          time, a dense library yardstick's time and two roofline bounds (f32
-          CUDA cores; 3×TF32 tensor cores); then the two kernels against each
-          other: with one class the backward's gradients are exactly 0 iff
-          both formed the same cosine bits (check_consistency); and one flash
-          and one dense train step of a 512-wide embedding agree;
+          shapes of the paths and beyond: D = 256; the deep D = 512, 300 and
+          301 (4-byte copies), which the backward takes through its wide
+          route; and D = 1024, its chunked route (a gradient row by row,
+          each row within 1e-3 of its own norm, with planted faults the
+          check must reject; the backward also with every target p ≈ 0.993
+          against the plain version in f64, at D = 37, and twice for the
+          same bits at D = 256 and every deep D), with its time, the plain
+          version's time, a dense library yardstick's time and two roofline
+          bounds (f32 CUDA cores; 3×TF32 tensor cores); then the two kernels
+          against each other: with one class the backward's gradients are
+          exactly 0 iff both formed the same cosine bits (check_consistency,
+          D = 256, 37, 512, 300 and 301); and one flash and one dense
+          ResNet-34 train step of a 512-wide embedding agree, with both
+          steps' ms and the flash step's device ms and kernel share;
   slice   the serving path at full width — 128 six-second utterances through
           wav_to_train_feats → ResNet-34 SpeakerModel (7325-speaker AAM head,
           seeded random weights) → extract_embeddings → the flash eval step →
@@ -129,7 +134,9 @@ Phases, one JSON line each:
           corpus of 512 speakers x 2 utterances (a cut of the corpus
           phase's 7325), each rank's crops from its own shard; (d)
           dryrun_multichip(2); the phase within 150 s;
-  kernels every kernel with its launches on the paths and its errors.
+  kernels every kernel with its launches on the paths and its errors (the
+          backward's also with a `deep` record of its times at 256 × 7325 ×
+          512).
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
 or outside a checkout, it fails at once and prints no result.
@@ -320,6 +327,13 @@ def phase_build():
         emit({"phase": "build", "kernel": name, "seconds": info["seconds"],
               "wall_seconds_all": wall, "ptxas": info["ptxas"], "hmma_instructions": hmma})
         check(hmma > 0, f"the {name} library has no HMMA instruction")
+    # the backward's route for 256 < D <= 512 holds a 32 x 512 accumulator a
+    # block in registers: it must not spill
+    wide = {k: v for k, v in _native.BUILD_INFO["flash_aam_bwd"]["ptxas"].items()
+            if "bwd_wide_kernel" in k}
+    check(len(wide) == 2, f"ptxas reported {len(wide)} bwd_wide_kernel instantiations, not 2")
+    for k, v in wide.items():
+        check(v.get("spill_bytes") == 0, f"{k} spills: {v}")
 
 
 # target cosine of the confident case, by D: every target p ≈ 0.993 at
@@ -430,7 +444,7 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
     return row
 
 
-BWD_KERNELS = ("bwd_tiles_kernel", "bwd_chunks_kernel", "bwd_de_sum_kernel")
+BWD_KERNELS = ("bwd_tiles_kernel", "bwd_wide_kernel", "bwd_chunks_kernel", "bwd_de_sum_kernel")
 ROW_TOL = 1e-3
 
 
@@ -699,12 +713,15 @@ def check_consistency(torch, B, D, seed, exact):
 
 
 def phase_kernel(torch, smi_line):
-    # D > 256 (the chunked path of both kernels): the 512-wide embedding at
-    # the train batch, and a ragged 100 x 7001 x 300
+    t0 = time.perf_counter()
+    # D > 256 (the chunked path of the forward; the backward's wide route up
+    # to 512 and its chunked route beyond): the 512-wide embedding at the
+    # train batch, a ragged 100 x 7001 x 300, and D = 301, whose rows take
+    # 4-byte copies
     cases = [("slice_eval", BATCH, SPK, 256, True), ("path_b256", 256, SPK, 256, True),
              ("path_b1024", 1024, SPK, 256, True), ("scale_c131072", 256, 131072, 256, True),
              ("ragged", 100, 7001, 256, False), ("path_b256_d512", 256, SPK, 512, True),
-             ("ragged_d300", 100, 7001, 300, True)]
+             ("ragged_d300", 100, 7001, 300, True), ("ragged_d301", 100, 7001, 301, False)]
     rows = [check_flash_case(torch, name, B, C, D, seed=i, timed=timed)
             for i, (name, B, C, D, timed) in enumerate(cases)]
     rows.append(check_flash_case(torch, "saturated", 4, 300, 256, seed=9, saturated=True,
@@ -712,9 +729,10 @@ def phase_kernel(torch, smi_line):
     bwd_cases = [("train_b256", TRAIN_B, SPK, 256, True), ("path_b1024", 1024, SPK, 256, True),
                  ("scale_c131072", 256, 131072, 256, True), ("ragged", 100, 7001, 256, True),
                  ("train_b256_d512", TRAIN_B, SPK, 512, True),
-                 ("ragged_d300", 100, 7001, 300, True)]
+                 ("ragged_d300", 100, 7001, 300, True), ("ragged_d301", 100, 7001, 301, False),
+                 ("ragged_d1024", 100, 7001, 1024, True)]
     bwd_rows = [check_flash_bwd_case(torch, name, B, C, D, seed=20 + i, timed=timed,
-                                     repeat=(i in (0, 4)))
+                                     repeat=(i == 0 or D > 256))
                 for i, (name, B, C, D, timed) in enumerate(bwd_cases)]
     bwd_rows.append(check_flash_bwd_case(torch, "saturated", 4, 300, 256, seed=29,
                                          saturated=True, timed=False))
@@ -724,26 +742,31 @@ def phase_kernel(torch, smi_line):
     bwd_rows.append(check_flash_bwd_case(torch, "ragged_depth", 100, 7001, 37, seed=31,
                                          timed=False))
     # labels off the shard (the class-sharded head's), at the train batch and
-    # on the chunked path
+    # on the deep path
     for i, how in enumerate(OFF_SHARD):
         check_offshard_case(torch, "b256", TRAIN_B, SPK, 256, 50 + i, how)
     check_offshard_case(torch, "ragged_d300", 100, 7001, 300, 53, "minus_c")
-    for i, (B, D) in enumerate(((256, 256), (100, 37), (256, 512), (100, 300))):
+    for i, (B, D) in enumerate(((256, 256), (100, 37), (256, 512), (100, 300), (100, 301))):
         for exact in (True, False):
             check_consistency(torch, B, D, seed=40 + i, exact=exact)
-    check_wide_train(torch, smi_line)
-    return rows, bwd_rows
+    wide_launches = check_wide_train(torch, smi_line)
+    emit({"phase": "kernel", "kernel": "all", "phase_s": time.perf_counter() - t0,
+          "card": smi_line})
+    return rows, bwd_rows, wide_launches
 
 
 WIDE_B = 128
 
 
 def check_wide_train(torch, smi_line):
-    """A 512-wide embedding (SpeakerModel(emb_dim=512), D = 512: the chunked
-    kernels): one flash step and one dense step from the same weights agree
-    (flash_dense_agree)."""
+    """A 512-wide embedding (SpeakerModel(emb_dim=512), D = 512: the forward's
+    chunked kernel and the backward's wide route): one flash step and one
+    dense step from the same weights agree (flash_dense_agree); then both
+    steps' ms (_median_step_ms) and the flash step's device ms with its
+    kernels' share."""
     from pkr_tpu_torch.models import SpeakerModel
-    from pkr_tpu_torch.train import cosine_epoch_lr, make_train_step
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.train import cosine_epoch_lr, create_train_state, make_train_step
 
     dev = torch.device("cuda")
     torch.manual_seed(3)
@@ -753,10 +776,42 @@ def check_wide_train(torch, smi_line):
     gen = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn((WIDE_B, 40, TRAIN_T), generator=gen, device=dev)
     y = torch.randint(0, SPK, (WIDE_B,), generator=gen, device=dev)
-    agree = flash_dense_agree(torch, model, init, make_train_step(model, flash_aam=True),
-                              make_train_step(model), x, y, cosine_epoch_lr(0.1, 10)(0))
+    lr = cosine_epoch_lr(0.1, 10)(0)
+    steps = {"flash": make_train_step(model, flash_aam=True), "dense": make_train_step(model)}
+
+    # --- the 512-wide path, with the kernel counts at 0 just before it ---
+    fa.flash_aam_fwd.launches = 0
+    fa.flash_aam_bwd.launches = 0
+    fa.flash_aam_bwd.route_launches = dict.fromkeys(fa.flash_aam_bwd.route_launches, 0)
+    agree = flash_dense_agree(torch, model, init, steps["flash"], steps["dense"], x, y, lr)
+    speed = {}
+    for tag, step in steps.items():
+        model.load_state_dict(init)
+        st, _ = step(create_train_state(model), x, y, lr)  # warm-up
+        ms, windows, _ = _median_step_ms(torch, step, st, x, y, lr)
+        speed[tag] = {"ms_per_step": ms, "window_ms": windows,
+                      "examples_per_s": WIDE_B * 1e3 / ms}
+    torch.cuda.synchronize()
+    launches = {"flash_aam_fwd": fa.flash_aam_fwd.launches,
+                "flash_aam_bwd": fa.flash_aam_bwd.launches,
+                "flash_aam_bwd_routes": dict(fa.flash_aam_bwd.route_launches)}
+    # --- end of the 512-wide path ---
+    check(launches["flash_aam_fwd"] > 0 and launches["flash_aam_bwd_routes"]["wide"] > 0 and
+          launches["flash_aam_bwd"] == launches["flash_aam_bwd_routes"]["wide"],
+          f"the 512-wide train path did not run the backward's wide route alone: {launches}")
+    model.load_state_dict(init)
+    st = create_train_state(model)
+    flash = speed["flash"]
+    flash["device_ms"] = device_ms(torch, lambda: steps["flash"](st, x, y, lr), 2)[0]
+    flash["flash_kernels_ms"] = device_ms(torch, lambda: steps["flash"](st, x, y, lr), 2,
+                                          only=BWD_KERNELS + FWD_KERNELS)[0]
+    check(flash["device_ms"] is not None and flash["flash_kernels_ms"] is not None,
+          "the 512-wide flash step's trace shows no device time")
+    flash["flash_kernels_share"] = flash["flash_kernels_ms"] / flash["device_ms"]
     emit({"phase": "kernel", "kernel": "train_step", "case": "emb_dim_512", "B": WIDE_B,
-          "C": SPK, "D": 512, "agree": agree, "card": smi_line})
+          "C": SPK, "D": 512, "launches": launches, "agree": agree, "speed": speed,
+          "card": smi_line})
+    return launches
 
 
 def phase_slice(torch, smi_line):
@@ -2682,16 +2737,24 @@ def phase_parallel(torch, smi_line, cfg=PAR):
     return launches
 
 
-def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys):
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": max(max(r[k] for k in err_keys) for r in rows),
-            "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            "bound_tc_ms": main_row["bound_tc_ms"],
-            "library_ms": main_row["library_ms"],
-            "shape": {"B": main_row["B"], "C": main_row["C"], "D": main_row["D"]},
-            "ok": True}
+def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys, deep_row=None):
+    """One kernel's record for the kernels line, timed at main_row's shape;
+    `deep_row` adds a `deep` record of the same times at its shape."""
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": sum(launches.values()), "launches_by_path": launches,
+             "max_abs_err": max(max(r[k] for k in err_keys) for r in rows),
+             "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
+             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+             "bound_tc_ms": main_row["bound_tc_ms"],
+             "library_ms": main_row["library_ms"],
+             "shape": {"B": main_row["B"], "C": main_row["C"], "D": main_row["D"]},
+             "ok": True}
+    if deep_row is not None:
+        entry["deep"] = {"B": deep_row["B"], "C": deep_row["C"], "D": deep_row["D"],
+                         "ms": deep_row["kernel_ms"], "plain_ms": deep_row["plain_ms"],
+                         "library_ms": deep_row["library_ms"], "bound_ms": deep_row["bound_ms"],
+                         "bound_tc_ms": deep_row["bound_tc_ms"]}
+    return entry
 
 
 def main():
@@ -2714,7 +2777,7 @@ def main():
     try:
         smi_line = phase_env(torch)
         phase_build()
-        rows, bwd_rows = phase_kernel(torch, smi_line)
+        rows, bwd_rows, wide_launches = phase_kernel(torch, smi_line)
         launches = phase_slice(torch, smi_line)
         train_launches = phase_train(torch, smi_line)
         corpus_launches = phase_corpus(torch, smi_line)
@@ -2732,6 +2795,7 @@ def main():
                       "pkr_tpu/ops/flash_aam.py:53",
                       {"slice": launches["flash_aam_fwd"],
                        "train": train_launches["flash_aam_fwd"],
+                       "train_d512": wide_launches["flash_aam_fwd"],
                        "corpus": corpus_launches["flash_aam_fwd"],
                        "recipe": recipe_launches["flash_aam_fwd"],
                        "zoo": zoo_launches["flash_aam_fwd"],
@@ -2740,11 +2804,13 @@ def main():
         _kernel_entry("flash_aam_bwd", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
                       "pkr_tpu/ops/flash_aam.py:197",
                       {"train": train_launches["flash_aam_bwd"],
+                       "train_d512": wide_launches["flash_aam_bwd"],
                        "corpus": corpus_launches["flash_aam_bwd"],
                        "recipe": recipe_launches["flash_aam_bwd"],
                        "zoo": zoo_launches["flash_aam_bwd"],
                        "parallel": parallel_launches["flash_aam_bwd"]},
-                      bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"))]
+                      bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"),
+                      deep_row=next(r for r in bwd_rows if r["case"] == "train_b256_d512"))]
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -32,31 +32,59 @@
 // nothing carries over, and the two reductions run different ways: dw reduces
 // over the batch, de over the classes.  So there are two passes, neither with
 // float atomics, both deterministic (two calls give the same bits), run by
-// one launch of bwd_tiles_kernel (two blocks resident per SM):
-//   the dW pass (dw_block): one block per 32-class tile (229 at C=7325)
-//     keeps its W tile in shared memory, loops over the 32-row batch tiles
-//     (the next one's cp.async copy in flight while the current one's MMAs
-//     run), recomputes each 32x32 tile of a into shared memory and
-//     accumulates dw_hat (32 x D) in registers; it owns whole rows, so it
-//     applies the row projection and writes dW once;
-//   the de pass (de_block): one block per (32-row batch tile, class split)
-//     keeps its e tile, streams its split's W tiles (double-buffered the
-//     same way) and accumulates a (32 x D) de partial; bwd_de_sum_kernel
-//     then adds the splits' partials in split order.
+// one launch:
+//   the dW pass: one block per 32-class tile (229 at C=7325) keeps its W
+//     tile in shared memory, loops over the 32-row batch tiles (the next
+//     one's cp.async copy in flight while the current one's MMAs run),
+//     recomputes each 32x32 tile of a into shared memory and accumulates
+//     dw_hat (32 x D) in registers; it owns whole rows, so it applies the
+//     row projection and writes dW once;
+//   the de pass: one block per (32-row batch tile, class split) keeps its
+//     e tile, streams its split's W tiles (double-buffered the same way) and
+//     accumulates a (32 x D) de partial; bwd_de_sum_kernel then adds the
+//     splits' partials in split order.
 // Each pass recomputes the cosine tiles, so they issue 8*B*C*D f32-product
 // operations (24*B*C*D in TF32) against the minimal 6*B*C*D.  In both, each
 // warp computes a 16x16 quadrant of a 32x32 cosine tile over half the
 // depth, and the two halves are summed through shared memory, the pair of
-// warps meeting at a barrier of their own (cosine_dots); then warp w
-// computes the 32 x 32 output columns [32 w, 32 w + 32) of the second
-// product.  The de pass takes the norms of the next W tile while the second
-// product runs, so no block-wide barrier sits inside the cosine.
-// 1/||w|| is computed once per W row of a staged tile (the sum of squares
-// in f32 on the CUDA cores, ||w|| = sqrt(max(sum w^2, 1e-24)), its
-// reciprocal rounded once); the cosine is (e . w) * (1/||w||), de folds
-// 1/||w|| into a (a * (1/||w||)) instead of scaling every staged W element,
-// and the a tile is split into its TF32 parts once, where it is formed, not
-// by every warp that reads it.
+// warps meeting at a barrier of their own (cosine_dots); then each warp
+// computes 32-column slabs of the second product.  The de pass takes the
+// norms of the next W tile while the second product runs, so no
+// block-wide barrier sits inside the cosine.  1/||w|| is computed once per
+// W row of a staged tile (the sum of squares in f32 on the CUDA cores,
+// ||w|| = sqrt(max(sum w^2, 1e-24)), its reciprocal rounded once); the
+// cosine is (e . w) * (1/||w||), de folds 1/||w|| into a (a * (1/||w||))
+// instead of scaling every staged W element, and the a tile is split into
+// its TF32 parts once, where it is formed, not by every warp that reads it.
+//
+// Three routes by depth, one launch each (launch):
+//   D <= DMAX (256): bwd_tiles_kernel (dw_block, de_block).  Rows padded
+//     to padded_depth(D) with zeros; three tiles fit twice in an SM's shared
+//     memory, so two blocks run on each SM and one block's barriers overlap
+//     the other's MMAs.  Warp w owns the output columns [32 w, 32 w + 32).
+//   DMAX < D <= WMAX (512): bwd_wide_kernel (dw_wide_block, de_wide_block).
+//     Three full-depth tiles (each n_chunks(D) resident 128-deep chunks,
+//     up to 64 KB) fill one SM, so one block of 8 warps runs on each.  What
+//     bounds it is that one block: its phases (cosine, a tile, second
+//     product) meet at block-wide barriers, and no second block fills them.
+//     So the design takes out the work that the chunked route repeats:
+//     every tile is staged once and every cosine tile formed once (the dW
+//     block stages its W tile and takes its norms once, then double-buffers
+//     e's batch tiles at full depth; the de block stages its e tile once and
+//     double-buffers its split's W tiles).  The cosine reads the resident
+//     chunks (resident_cosine, chunked_cosine's bits), the second product
+//     reads the tile that the cosine just read, so no copy waits behind the
+//     MMAs, and the output depth is padded to 32 columns: warp w owns the
+//     slabs [32 w, 32 w + 32) and [256 + 32 w, 256 + 32 w + 32), as far as
+//     D reaches, in 64 accumulators a thread.  Two other layouts were
+//     tried on an H100 and left out, both spilling without a clear gain:
+//     16 warps of one slab each (128 registers a thread), and a cosine
+//     that exchanges all its chunks at one barrier (255); see PERF.md.
+//   D > WMAX: bwd_chunks_kernel (dw_chunks_block, de_chunks_block).  Three
+//     full-depth tiles no longer fit, so the cosine tiles stream the depth
+//     through chunked_cosine and the second products run over 256-wide
+//     output chunks, recomputing the cosine tiles for each; two blocks an
+//     SM, as the tiles kernel.
 //
 // Numerics against the forward.  The cosine tile (tile_rnorms, cosine_dots)
 // is flash_aam_cosine.cuh's, which the forward kernel calls on the same
@@ -65,14 +93,10 @@
 // That matters at the sin clip (cos -> 1), where phi' grows as
 // sin_m * cos / sin and one ulp of cosine would move p by up to ~1e-3.  A
 // saturated cosine is exact: 1.0 and 2.0 split into TF32 with no
-// remainder, and 1/||w|| = 0.5.
-//
-// Depth.  For D <= DMAX (256) the rows are padded to padded_depth(D) in
-// shared memory with zeros.  Deeper rows take bwd_chunks_kernel: the same
-// blocks, the cosine tiles streamed in 128-deep chunks by the forward's own
-// chunked_cosine, and the second products cut by output depth (see
-// dw_chunks_block).  Rows of e and W whose length is a multiple of 4 are
-// staged with 16-byte cp.async copies; other D take 4-byte copies (VEC = 1).
+// remainder, and 1/||w|| = 0.5.  Above DMAX the forward streams 128-deep
+// chunks (chunked_cosine); the wide and chunked routes both form its bits.
+// Rows of e and W whose length is a multiple of 4 are staged with 16-byte
+// cp.async copies; other D take 4-byte copies (VEC = 1).
 
 #include "flash_aam_cosine.cuh"
 
@@ -338,7 +362,222 @@ __device__ __forceinline__ void de_block(float* smem, int row_tile, int split,
     }
 }
 
-// D > DMAX.  The cosine tiles stream the depth through chunked_cosine (the
+// DMAX < D <= WMAX.  Every tile is resident at full depth as n_chunks(D)
+// chunks of KC (stage_chunks), and warp w owns the SLABS slabs w and
+// w + WARPS of 32 output columns each, those that start below D: slab s
+// covers the depths [32 s, 32 s + 32), columns 32 (s % 4) .. of chunk s / 4.
+constexpr int SLABS = WMAX / (32 * WARPS);
+
+static_assert(KC == 4 * 32, "slab s lies in chunk s / 4");
+
+// The second product's operand for slab `slab` of a resident tile.
+__device__ __forceinline__ const float* slab_chunk(const float* tile, int slab) {
+  return tile + (slab >> 2) * TB * KC;
+}
+
+// The floats of one resident tile, and the dW pass's shared memory (the de
+// pass takes less: no projection scratch, a second norm buffer).
+__host__ __device__ inline int wide_tile(int D) { return n_chunks(D) * TB * KC; }
+
+__host__ __device__ inline int wide_smem_floats(int D) {
+  return 3 * wide_tile(D) + 2 * TB * TC + TC + WARPS * TC + 2 * WARPS * 128;
+}
+
+// The dW pass for DMAX < D <= WMAX, one block per TC-class tile: dw_hat =
+// a^T e over every batch tile, then dW = (dw_hat - (dw_hat . w_hat) w_hat)
+// / ||w||, the projection summed by each thread over its slabs in order,
+// then over the lanes of a class and over the warps in order.
+template <int VEC>
+__device__ __forceinline__ void dw_wide_block(float* smem, int tile, const float* __restrict__ e,
+                                              const float* __restrict__ w,
+                                              const int* __restrict__ labels,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ g, int B, int C, int D,
+                                              const Margin& mg, float* __restrict__ dw) {
+  const int T = wide_tile(D);
+  float* ws = smem;                            // W tile, [n_ch][TC][KC]
+  float* const eb[2] = {ws + T, ws + 2 * T};   // e's batch tiles, even and odd
+  float* at_big = ws + 3 * T;                  // [TB][TC]
+  float* at_small = at_big + TB * TC;          // [TB][TC]
+  float* rinv = at_small + TB * TC;            // [TC]
+  float* projp = rinv + TC;                    // [WARPS][TC]
+  float* xch = projp + WARPS * TC;             // [2][WARPS][4][32]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int col0 = tile * TC;
+  const int n_bt = (B + TB - 1) / TB;
+  const int n_ch = n_chunks(D);
+
+  stage_chunks<VEC>(ws, w, col0, C, D);
+  stage_chunks<VEC>(eb[0], e, 0, B, D);
+  tf32x3::commit();
+  tf32x3::wait_pending<0>();
+  __syncthreads();
+  resident_rnorms(ws, n_ch, rinv);
+
+  float acc[SLABS][2][4][4] = {};
+  for (int bt = 0; bt < n_bt; ++bt) {
+    const float* ecur = eb[bt & 1];
+    tf32x3::wait_pending<0>();
+    __syncthreads();  // tile bt has landed, and every warp is done with tile bt - 1
+    if (bt + 1 < n_bt) {
+      stage_chunks<VEC>(eb[(bt + 1) & 1], e, (bt + 1) * TB, B, D);
+      tf32x3::commit();
+    }
+    const Rows rd = row_data(labels, lse, g, B, bt * TB);
+
+    float dot[4];
+    resident_cosine(dot, ecur, ws, n_ch, xch);
+    a_tile<false>(dot, rinv, rd, C, col0, mg, at_big, at_small);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < SLABS; ++i) {
+      const int slab = warp + WARPS * i;
+      if (32 * slab < D)
+        tf32x3::warp_mma_k32<K_ROWS>(acc[i], at_big, at_small, slab_chunk(ecur, slab), KC,
+                                     32 * (slab & 3));
+    }
+  }
+
+  // acc[i][m][j][q] holds class 16 m + lane / 4 + 8 (q / 2) at depth
+  // 32 (warp + WARPS i) + 8 j + 2 (lane % 4) + q % 2; w_hat is read back
+  // from the resident W tile
+  auto w_hat = [&](int cls, int slab, int j, int q) {
+    const int dl = 32 * (slab & 3) + 8 * j + 2 * (lane & 3) + q;
+    return __fmul_rn(slab_chunk(ws, slab)[at(cls, dl, KC)], rinv[cls]);
+  };
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cls = 16 * m + (lane >> 2) + 8 * h;
+      float proj = 0.0f;
+#pragma unroll
+      for (int i = 0; i < SLABS; ++i) {
+        const int slab = warp + WARPS * i;
+        if (32 * slab >= D) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            proj = fmaf(acc[i][m][j][2 * h + q], w_hat(cls, slab, j, q), proj);
+      }
+      // the 4 lanes of a class are neighbours in the warp
+      proj += __shfl_xor_sync(FULL, proj, 1);
+      proj += __shfl_xor_sync(FULL, proj, 2);
+      if ((lane & 3) == 0) projp[warp * TC + cls] = proj;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cls = 16 * m + (lane >> 2) + 8 * h;
+      const int c = col0 + cls;
+      if (c >= C) continue;
+      float proj = 0.0f;
+      for (int k = 0; k < WARPS; ++k) proj += projp[k * TC + cls];
+      const float ri = rinv[cls];
+#pragma unroll
+      for (int i = 0; i < SLABS; ++i) {
+        const int slab = warp + WARPS * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int d = 32 * slab + 8 * j + 2 * (lane & 3) + q;
+            if (d < D)
+              dw[(size_t)c * D + d] = __fmul_rn(
+                  __fsub_rn(acc[i][m][j][2 * h + q], __fmul_rn(proj, w_hat(cls, slab, j, q))),
+                  ri);
+          }
+      }
+    }
+}
+
+// The de pass for DMAX < D <= WMAX, one block per (batch tile, class
+// split): part[split] = a[rows, split] w_hat.
+template <int VEC>
+__device__ __forceinline__ void de_wide_block(float* smem, int row_tile, int split,
+                                              const float* __restrict__ e,
+                                              const float* __restrict__ w,
+                                              const int* __restrict__ labels,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ g, int B, int C, int D,
+                                              int tiles_per_split, const Margin& mg,
+                                              float* __restrict__ part) {
+  const int T = wide_tile(D);
+  float* es = smem;                            // e tile, [n_ch][TB][KC]
+  float* const wb[2] = {es + T, es + 2 * T};   // the split's W tiles, even and odd
+  float* at_big = es + 3 * T;                  // [TB][TC]
+  float* at_small = at_big + TB * TC;          // [TB][TC]
+  float* const rinv[2] = {at_small + TB * TC, at_small + TB * TC + TC};  // [TC] each
+  float* xch = rinv[1] + TC;                   // [2][WARPS][4][32]
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = row_tile * TB;
+  const int n_tiles = (C + TC - 1) / TC;
+  const int tile_lo = split * tiles_per_split;
+  const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
+  const int n_ch = n_chunks(D);
+
+  stage_chunks<VEC>(es, e, row0, B, D);
+  stage_chunks<VEC>(wb[0], w, tile_lo * TC, C, D);
+  tf32x3::commit();
+
+  const Rows rd = row_data(labels, lse, g, B, row0);
+  tf32x3::wait_pending<0>();
+  __syncthreads();
+  resident_rnorms(wb[0], n_ch, rinv[0]);
+
+  float acc[SLABS][2][4][4] = {};
+  for (int t = tile_lo; t < tile_hi; ++t) {
+    const int cur = (t - tile_lo) & 1;
+    __syncthreads();  // tile t and its norms are ready, and every warp is done with t - 1
+    if (t + 1 < tile_hi) {
+      stage_chunks<VEC>(wb[cur ^ 1], w, (t + 1) * TC, C, D);
+      tf32x3::commit();
+    }
+
+    float dot[4];
+    resident_cosine(dot, es, wb[cur], n_ch, xch);
+    a_tile<true>(dot, rinv[cur], rd, C, t * TC, mg, at_big, at_small);
+    // tile t + 1 lands while the second product runs; its norms are taken
+    // now, into the other buffer, so that the cosine never waits on them
+    tf32x3::wait_pending<0>();
+    __syncthreads();
+    if (t + 1 < tile_hi) resident_rnorms(wb[cur ^ 1], n_ch, rinv[cur ^ 1]);
+#pragma unroll
+    for (int i = 0; i < SLABS; ++i) {
+      const int slab = warp + WARPS * i;
+      if (32 * slab < D)
+        tf32x3::warp_mma_k32<MK_ROWS>(acc[i], at_big, at_small, slab_chunk(wb[cur], slab), KC,
+                                      32 * (slab & 3));
+    }
+  }
+
+  float* out = part + (size_t)split * B * D;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 16 * m + (lane >> 2) + 8 * h;
+      if (r >= B) continue;
+#pragma unroll
+      for (int i = 0; i < SLABS; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int d = 32 * (warp + WARPS * i) + 8 * j + 2 * (lane & 3) + q;
+            if (d < D) out[(size_t)r * D + d] = acc[i][m][j][2 * h + q];
+          }
+    }
+}
+
+// D > WMAX.  The cosine tiles stream the depth through chunked_cosine (the
 // forward's chunks, so the cosines keep the forward's bits), and the second
 // products run over output depth chunks of OC = 32 * WARPS, warp w taking
 // the depths [32 w, 32 w + 32) of each: the block loops over the output
@@ -347,7 +586,7 @@ __device__ __forceinline__ void de_block(float* smem, int row_tile, int split,
 // cosine work of one pass.  xo holds the output chunk's other operand.
 constexpr int OC = 32 * WARPS;
 
-// The dW pass for D > DMAX, one block per TC-class tile.  For each output
+// The dW pass for D > WMAX, one block per TC-class tile.  For each output
 // chunk, dw_hat's columns of it are written to dw unprojected and their
 // share of proj = dw_hat . w_hat is added to projs in chunk order; a last
 // sweep then applies dW = (dw_hat - proj w_hat) / ||w|| in place.
@@ -444,7 +683,7 @@ __device__ __forceinline__ void dw_chunks_block(float* smem, int tile,
   }
 }
 
-// The de pass for D > DMAX, one block per (batch tile, class split):
+// The de pass for D > WMAX, one block per (batch tile, class split):
 // part[split] = a[rows, split] w_hat, output chunk by output chunk.
 template <int VEC>
 __device__ __forceinline__ void de_chunks_block(float* smem, int row_tile, int split,
@@ -527,7 +766,26 @@ bwd_tiles_kernel(const float* __restrict__ e, const float* __restrict__ w,
   }
 }
 
-// The same two passes for D > DMAX, on the same blocks.
+// The two passes for DMAX < D <= WMAX, on blocks of one an SM.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_wide_kernel(const float* __restrict__ e, const float* __restrict__ w,
+                const int* __restrict__ labels, const float* __restrict__ lse,
+                const float* __restrict__ g, int B, int C, int D, int tiles_per_split,
+                Margin mg, float* __restrict__ part, float* __restrict__ dw) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_dw = (C + TC - 1) / TC;
+  if ((int)blockIdx.x < n_dw) {
+    dw_wide_block<VEC>(smem, blockIdx.x, e, w, labels, lse, g, B, C, D, mg, dw);
+  } else {
+    const int i = blockIdx.x - n_dw;
+    const int n_rt = (B + TB - 1) / TB;
+    de_wide_block<VEC>(smem, i % n_rt, i / n_rt, e, w, labels, lse, g, B, C, D,
+                       tiles_per_split, mg, part);
+  }
+}
+
+// The two passes for D > WMAX, on the tiles kernel's blocks.
 template <int VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 bwd_chunks_kernel(const float* __restrict__ e, const float* __restrict__ w,
@@ -556,33 +814,48 @@ __global__ void bwd_de_sum_kernel(const float* __restrict__ part, int n_splits,
   de[i] = sum;
 }
 
+// The route's kernel for depth D and its dynamic shared memory, with the
+// kernel allowed that much.
+template <int VEC>
+cudaError_t route(int D, const void** kernel, size_t* smem) {
+  if (D <= DMAX) {
+    const int DP = padded_depth(D);
+    // the dW pass's layout (the de pass's is smaller: no projection scratch)
+    *smem = sizeof(float) * (3 * TB * DP + 2 * TB * TC + TC + WARPS * TC + WARPS * 128);
+    *kernel = reinterpret_cast<const void*>(bwd_tiles_kernel<VEC>);
+  } else if (D <= WMAX) {
+    *smem = sizeof(float) * wide_smem_floats(D);
+    *kernel = reinterpret_cast<const void*>(bwd_wide_kernel<VEC>);
+  } else {
+    // the dW pass's layout again (the de pass's has no projection scratch)
+    *smem = sizeof(float) * (2 * (TB + TC) * KC + TB * OC + 2 * TB * TC + TC + WARPS * TC + TC +
+                             WARPS * 128);
+    *kernel = reinterpret_cast<const void*>(bwd_chunks_kernel<VEC>);
+  }
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
 template <int VEC>
 cudaError_t launch(const float* e, const float* w, const int* labels, const float* lse,
                    const float* g, int B, int C, int D, int tiles_per_split, int n_splits,
                    const Margin& mg, float* part, float* de, float* dw, cudaStream_t st) {
   static_assert(TB == TC, "both passes stage three 32-row tiles");
   const int blocks = (C + TC - 1) / TC + (B + TB - 1) / TB * n_splits;
-  cudaError_t err;
-  if (D <= DMAX) {
-    const int DP = padded_depth(D);
-    // the dW pass's layout (the de pass's is smaller: no projection scratch)
-    const size_t smem =
-        sizeof(float) * (3 * TB * DP + 2 * TB * TC + TC + WARPS * TC + WARPS * 128);
-    err = cudaFuncSetAttribute(bwd_tiles_kernel<VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    bwd_tiles_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D, DP,
-                                                          tiles_per_split, mg, part, dw);
-  } else {
-    // the dW pass's layout again (the de pass's has no projection scratch)
-    const size_t smem = sizeof(float) * (2 * (TB + TC) * KC + TB * OC + 2 * TB * TC + TC +
-                                         WARPS * TC + TC + WARPS * 128);
-    err = cudaFuncSetAttribute(bwd_chunks_kernel<VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+  const void* kernel;
+  size_t smem;
+  cudaError_t err = route<VEC>(D, &kernel, &smem);
+  if (err != cudaSuccess) return err;
+  if (D <= DMAX)
+    bwd_tiles_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D,
+                                                          padded_depth(D), tiles_per_split, mg,
+                                                          part, dw);
+  else if (D <= WMAX)
+    bwd_wide_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D,
+                                                         tiles_per_split, mg, part, dw);
+  else
     bwd_chunks_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D,
                                                            tiles_per_split, mg, part, dw);
-  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = B * D;
@@ -596,6 +869,25 @@ extern "C" {
 
 int flash_aam_bwd_block_rows() { return TB; }
 int flash_aam_bwd_block_classes() { return TC; }
+
+// The route that depth D takes: 0 bwd_tiles_kernel, 1 bwd_wide_kernel,
+// 2 bwd_chunks_kernel.
+int flash_aam_bwd_route(int D) { return D <= DMAX ? 0 : D <= WMAX ? 1 : 2; }
+
+// The blocks of depth D's route that one SM of the current device holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor with the route's
+// shared memory; the 16-byte-copy kernel, whose 4-byte twin has the same
+// shared memory and register cap), or -1 on a CUDA error.
+int flash_aam_bwd_blocks_per_sm(int D) {
+  const void* kernel;
+  size_t smem;
+  int blocks = 0;
+  if (D <= 0 || route<4>(D, &kernel, &smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
 
 // e (B, D) f32, w (C, D) f32, labels (B,) i32, lse (B,) f32, g (B,) f32, all
 // contiguous on the card; part is scratch of n_splits * B * D floats with

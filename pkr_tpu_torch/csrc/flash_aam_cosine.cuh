@@ -17,6 +17,9 @@
 //   e . w   = the chunks' cosine_dots, added with __fadd_rn in chunk order,
 //   1/||w|| = __frsqrt_rn(max(sum w^2, 1e-24)), sum w^2 the chunks' tile_sq
 //             added in the same order.
+// Up to WMAX deep, the backward keeps every chunk of its tiles resident
+// instead (stage_chunks, resident_rnorms, resident_cosine) and forms the
+// same bits from them.
 #pragma once
 
 #include "flash_aam_common.cuh"
@@ -28,6 +31,7 @@ constexpr int TB = 32;          // batch rows per tile
 constexpr int TC = 32;          // classes per tile
 constexpr int DMAX = 256;       // largest depth of the resident tiles
 constexpr int KC = 128;         // depth chunk of chunked_cosine (D > DMAX)
+constexpr int WMAX = 512;       // deepest rows whose chunks stay resident
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
@@ -149,6 +153,42 @@ __device__ __forceinline__ void chunked_cosine(float (&dot)[4], const float* __r
     }
   }
   if (NORMS && (threadIdx.x & 7) == 0) rinv[threadIdx.x >> 3] = __frsqrt_rn(fmaxf(sq, 1e-24f));
+}
+
+// Stage the 32 rows [row0, row0 + 32) of x (n_rows rows of D floats) at full
+// depth into dst as n_chunks(D) resident chunks: chunk k is the swizzled
+// [32][KC] tile dst + k * 32 * KC, filled as chunked_cosine fills its
+// buffers (zeros past D and past n_rows).  Commits no group.
+template <int VEC>
+__device__ __forceinline__ void stage_chunks(float* dst, const float* __restrict__ x,
+                                             int row0, int n_rows, int D) {
+  static_assert(TB == TC, "one chunk size for both operands");
+  for (int k = 0; k < n_chunks(D); ++k)
+    tf32x3::stage_rows<VEC>(dst + k * TB * KC, KC, x + k * KC, D, row0, TB, n_rows, D - k * KC);
+}
+
+// chunked_cosine's 1/||w|| from a resident TC-row tile of n_ch chunks.
+// Other threads see it after the next __syncthreads.
+__device__ __forceinline__ void resident_rnorms(const float* ws, int n_ch, float* rinv) {
+  float sq = tile_sq(ws, KC);
+  for (int k = 1; k < n_ch; ++k) sq = __fadd_rn(sq, tile_sq(ws + k * TC * KC, KC));
+  if ((threadIdx.x & 7) == 0) rinv[threadIdx.x >> 3] = __frsqrt_rn(fmaxf(sq, 1e-24f));
+}
+
+// chunked_cosine's dot from resident tiles es and ws of n_ch chunks.  The
+// chunks take the two exchange buffers xch and xch + WARPS * 128 in turn,
+// so no block-wide barrier sits between them: a warp reaches chunk k + 2's
+// writes only past chunk k + 1's pair barrier, which its partner reaches
+// only after reading chunk k's.  The caller syncs between its last reads
+// of xch and the next call.
+__device__ __forceinline__ void resident_cosine(float (&dot)[4], const float* es,
+                                                const float* ws, int n_ch, float* xch) {
+  for (int k = 0; k < n_ch; ++k) {
+    float part[4];
+    cosine_dots(part, es + k * TB * KC, ws + k * TC * KC, KC, xch + (k & 1) * WARPS * 128);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dot[q] = k ? __fadd_rn(dot[q], part[q]) : part[q];
+  }
 }
 
 }  // namespace flash_aam

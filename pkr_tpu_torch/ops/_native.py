@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per kernel library: build seconds (0.0 when an earlier build was reused),
-# the library path, and ptxas' registers / shared memory per kernel
+# the library path, and ptxas' registers / shared memory / spills per kernel
+# (kept beside the library, so a reused build reports them too)
 BUILD_INFO: Dict[str, dict] = {}
 
 
@@ -76,11 +77,18 @@ def _library(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _log(lib: Path) -> Path:
+    """Where nvcc's output for a library is kept beside it."""
+    return lib.with_name(f"{lib.name}.log")
+
+
 def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path, Path, float]]:
     """Start nvcc for csrc/<name>.cu unless its library exists."""
     lib = _library(name)
     if lib.exists():
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "path": str(lib), "ptxas": {}})
+        log = _log(lib)
+        BUILD_INFO.setdefault(name, {"seconds": 0.0, "path": str(lib), "ptxas": _ptxas_usage(
+            log.read_text() if log.exists() else "")})
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
@@ -95,6 +103,7 @@ def _finish(name: str, job: Tuple[subprocess.Popen, Path, Path, float]) -> None:
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {CSRC / name}.cu:\n{log}")
+    _log(lib).write_text(log)
     os.replace(tmp, lib)
     BUILD_INFO[name] = {"seconds": seconds, "path": str(lib), "ptxas": _ptxas_usage(log)}
 

@@ -50,9 +50,10 @@ DEFAULT_TILE = 2048
 _NEG_INF = -1e30
 _KERNEL = "flash_aam_fwd"
 _BWD_KERNEL = "flash_aam_bwd"
-# CUDA blocks per SM to aim for when the class axis is split: two of either
-# kernel's blocks fill an SM's shared memory at D = 256, and the chunked
-# blocks of D > 256 take about as much
+# CUDA blocks per SM to aim for when the forward splits the class axis: two
+# of its blocks fill an SM's shared memory at D = 256, and the chunked blocks
+# of D > 256 take about as much.  The backward asks its library instead
+# (_bwd_blocks_per_sm): its route for 256 < D <= 512 holds one block an SM.
 _BLOCKS_PER_SM = 2
 
 
@@ -80,6 +81,12 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     of the plain backward."""
     with full_f32():
         return torch.matmul(a, b)
+
+
+def _row_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Σ_d x·y of each row, kept as a column: the plain backward's dW
+    projection dŵ·ŵ."""
+    return torch.sum(x * y, dim=1, keepdim=True)
 
 
 def flash_aam_fwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
@@ -148,7 +155,7 @@ def flash_aam_bwd_plain(e_hat: torch.Tensor, weight: torch.Tensor,
         a = (p - is_tgt.to(dt)) * dz * g2
         de += _mm(a, w_hat)
         dw_hat = _mm(a.T, e_hat)  # (tile, D)
-        proj = torch.sum(dw_hat * w_hat, dim=1, keepdim=True)
+        proj = _row_dot(dw_hat, w_hat)
         dw[c0:c0 + tile] = (dw_hat - proj * w_hat) / wnorm
     return de, dw
 
@@ -197,11 +204,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _n_splits(n_tiles, n_btiles, dev):
-    """(class tiles per split, splits) so that batch tiles × splits fill the
-    card with about ``_BLOCKS_PER_SM`` blocks per SM."""
-    target = _BLOCKS_PER_SM * _sm_count(dev.index if dev.index is not None
-                                        else torch.cuda.current_device())
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _n_splits(n_tiles, n_btiles, sms, blocks_per_sm):
+    """(class tiles per split, splits) for ``n_btiles`` batch tiles over
+    ``n_tiles`` class tiles on ``sms`` SMs that hold ``blocks_per_sm`` blocks
+    each.  Each (batch tile, split) block takes the even share of the
+    card's target = sms × blocks_per_sm resident blocks, ⌈pairs / target⌉
+    class tiles (at least one), so the split blocks fill the card about once:
+    at most target + n_btiles − 1 of them, and every class tile of its own
+    where the tile pairs number no more than the target."""
+    target = sms * blocks_per_sm
     tiles_per_split = max(1, -(-n_tiles * n_btiles // target))
     return tiles_per_split, -(-n_tiles // tiles_per_split)
 
@@ -213,7 +228,8 @@ def _launch(e_hat, weight, labels, zt, m, s):
     dev = e_hat.device
     e_hat, weight, zt = (t.contiguous() for t in (e_hat, weight, zt))
     labels = labels.to(torch.int32).contiguous()
-    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), dev)
+    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm),
+                                          _sm_count(_device_index(dev)), _BLOCKS_PER_SM)
     part = torch.empty((4, n_splits, B), dtype=torch.float32, device=dev)
     out = torch.empty((4, B), dtype=torch.float32, device=dev)
     cos_m, sin_m, th, mm = _margin_consts(m)
@@ -260,6 +276,35 @@ def _bwd_kernel():
     return fn, lib.flash_aam_bwd_block_rows(), lib.flash_aam_bwd_block_classes()
 
 
+_BWD_ROUTES = ("tiles", "wide", "chunks")
+
+
+def _bwd_query(name: str, D: int) -> int:
+    """``int name(int D)`` of the built backward library."""
+    fn = getattr(_native.load(_BWD_KERNEL), name)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(D)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_route(D: int) -> str:
+    """The backward kernel's route for depth D, as its library picks it:
+    ``tiles`` (D ≤ 256), ``wide`` (to 512) or ``chunks``."""
+    return _BWD_ROUTES[_bwd_query("flash_aam_bwd_route", D)]
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks_per_sm(index: int, D: int) -> int:
+    """Blocks of the backward's route for depth D that one SM of card
+    ``index`` holds at once, from the library's occupancy query."""
+    with torch.cuda.device(index):
+        n = _bwd_query("flash_aam_bwd_blocks_per_sm", D)
+    if n < 1:
+        raise RuntimeError(f"flash_aam_bwd: no block fits an SM at D = {D} "
+                           f"(occupancy query gave {n})")
+    return n
+
+
 def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
     fn, bm, bn = _bwd_kernel()
     B, D = e_hat.shape
@@ -267,7 +312,9 @@ def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
     dev = e_hat.device
     e_hat, weight, lse, g = (t.contiguous() for t in (e_hat, weight, lse, g))
     labels = labels.to(torch.int32).contiguous()
-    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), dev)
+    index = _device_index(dev)
+    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), _sm_count(index),
+                                          _bwd_blocks_per_sm(index, D))
     part = torch.empty((n_splits, B, D), dtype=torch.float32, device=dev)
     de = torch.empty((B, D), dtype=torch.float32, device=dev)
     dw = torch.empty((C, D), dtype=torch.float32, device=dev)
@@ -280,6 +327,7 @@ def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
     if err != 0:
         raise RuntimeError(f"flash_aam_bwd kernel launch failed: cudaError {err}")
     flash_aam_bwd.launches += 1
+    flash_aam_bwd.route_launches[_bwd_route(D)] += 1
     return de, dw
 
 
@@ -292,8 +340,9 @@ def flash_aam_bwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tenso
     e_hat (B, D) f32 L2-normalized embeddings, weight (C, D) f32, labels (B,)
     integer, lse (B,) f32 from the forward, g (B,) f32 per-example loss
     gradient.  A CUDA tensor launches the kernel (counted in
-    ``flash_aam_bwd.launches``; any D) or raises; a CPU tensor runs the
-    plain version with class tile ``tile``."""
+    ``flash_aam_bwd.launches``, and by its route for D in
+    ``flash_aam_bwd.route_launches``; any D) or raises; a CPU tensor runs
+    the plain version with class tile ``tile``."""
     _check_inputs(e_hat, weight, labels, (lse, g), ("lse", "g"))
     if _on_card(e_hat, {"weight": weight, "labels": labels, "lse": lse, "g": g},
                 "flash_aam_bwd"):
@@ -302,6 +351,7 @@ def flash_aam_bwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tenso
 
 
 flash_aam_bwd.launches = 0
+flash_aam_bwd.route_launches = dict.fromkeys(_BWD_ROUTES, 0)
 
 
 def _acc_from(zy: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:

@@ -198,6 +198,39 @@ def test_wrapper_checks_inputs():
     assert port_flash.flash_aam_fwd.launches == before  # CPU: plain version
 
 
+# (class tiles, batch tiles, SMs, blocks an SM): the kernels' shapes on an
+# H100 (132 SMs; the backward's wide route holds one block an SM, the other
+# routes and the forward two), then small and ragged cards
+SPLIT_CASES = [(229, 8, 132, 2), (229, 8, 132, 1), (229, 32, 132, 2), (229, 4, 132, 2),
+               (4096, 8, 132, 2), (219, 4, 132, 1), (219, 4, 132, 2), (2, 1, 132, 2),
+               (1, 1, 132, 1), (5, 1, 2, 2), (101, 1, 100, 1), (63, 2, 8, 3),
+               (1000, 3, 7, 1)]
+
+
+@pytest.mark.parametrize("n_tiles,n_btiles,sms,blocks_per_sm", SPLIT_CASES)
+def test_split_rule_covers_every_class_tile_once(n_tiles, n_btiles, sms, blocks_per_sm):
+    """The class splits of both kernels (_n_splits): split s takes the class
+    tiles [s·tps, min(s·tps + tps, n_tiles)), as the kernels read it, so
+    every class tile lies in exactly one split and none is empty.  Each
+    (batch tile, split) block takes the even share of the target = SMs ×
+    blocks per SM, tps = ⌈pairs / target⌉ tile pairs (pairs = batch tiles ×
+    class tiles), so the blocks reach the target's fill as far as the tiles
+    allow: every pair its own block where pairs ≤ target, else at least
+    ⌈pairs / tps⌉ blocks and fewer than target + batch tiles."""
+    tps, n_splits = port_flash._n_splits(n_tiles, n_btiles, sms, blocks_per_sm)
+    target, pairs = sms * blocks_per_sm, n_tiles * n_btiles
+    owned = [t for split in range(n_splits)
+             for t in range(split * tps, min(split * tps + tps, n_tiles))]
+    assert sorted(owned) == list(range(n_tiles))
+    assert (n_splits - 1) * tps < n_tiles  # the last split holds a tile
+    fill = n_btiles * n_splits
+    if pairs <= target:
+        assert tps == 1 and fill == pairs
+    else:
+        assert (tps - 1) * target < pairs <= tps * target
+        assert -(-pairs // tps) <= fill < target + n_btiles
+
+
 def test_bwd_wrapper_checks_inputs():
     emb, w, labels = make()
     e_hat, _ = port_flash._normalize(torch.from_numpy(emb))

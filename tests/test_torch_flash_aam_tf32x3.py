@@ -23,7 +23,11 @@ Rows deeper than 256 (D = 300, 512) take the kernels' chunked path
 last padded with zeros, each chunk's dot the sum of its two 64-deep halves,
 each half the f32 sum of its 16-deep 3×TF32 products in order, and the
 chunks' dots added in chunk order.  mm_chunked emulates that order for the
-depth product and is held to the Pallas kernels at the same bars.
+depth product and is held to the Pallas kernels at the same bars.  Up to
+D = 512 the backward takes its wide route (flash_aam_bwd.cu:
+bwd_wide_kernel), which forms the same cosines but sums dW's projection
+dŵ·ŵ over the whole depth in one pass, in its warps' order (row_dot_wide);
+the backward test holds that model to the Pallas kernel at D = 300 and 512.
 """
 
 import numpy as np
@@ -91,6 +95,30 @@ def mm_chunked(depth: int):
 
 DEEP_CASES = {"D300": (make(B=24, D=300, C=200, seed=12), 128),
               "D512": (make(B=24, D=512, C=300, seed=13), 256)}
+
+
+def row_dot_wide(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Σ_d x·y of each row, kept as a column, in the order in which
+    bwd_wide_kernel sums dW's projection (256 < D ≤ 512, zeros to 512):
+    depth d = 32·(w + 8·s) + 8·j + 2·t + q lies with lane t of a class's
+    four in warp w; each lane adds its products in the order s, j, q, one
+    rounding each (fmaf; modelled in f64, then rounded to f32), the four
+    lanes add as (t0 + t1) + (t2 + t3), and the warps' sums add from 0 in
+    warp order."""
+    C, D = x.shape
+    assert 256 < D <= 512
+    prod = torch.nn.functional.pad(x.double() * y.double(), (0, 512 - D))
+    prod = prod.reshape(C, 2, 8, 4, 4, 2)  # (class, s, w, j, t, q)
+    lane = torch.zeros((C, 8, 4), dtype=torch.float32)
+    for s in range(2):
+        for j in range(4):
+            for q in range(2):
+                lane = (lane.double() + prod[:, s, :, j, :, q]).float()
+    warp = (lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3])
+    total = torch.zeros(C, dtype=torch.float32)
+    for w in range(8):
+        total = total + warp[:, w]
+    return total[:, None]
 
 
 def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -218,15 +246,21 @@ def test_tf32x3_fwd_matches_pallas_fwd(name, monkeypatch):
     np.testing.assert_array_equal((got[3] < 5)[rows], (ref[3] < 5)[rows])
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", list(CASES) + list(DEEP_CASES))
 def test_tf32x3_bwd_matches_pallas_bwd(name, monkeypatch):
     """(dê, dW) of the plain backward with its three products in emulated
     3×TF32 against the Pallas backward kernel (interpret mode), every row
     within 1e-3 of its own norm but those of examples at the sin clip
-    (_off_the_clip), which only the margin and saturated cases have."""
-    (emb, w, labels), tile = CASES[name]
+    (_off_the_clip), which only the margin and saturated cases have.  The
+    deep cases (D = 300, 512) model the wide route: the chunked cosine
+    (mm_chunked) and dW's projection in its order (row_dot_wide)."""
+    (emb, w, labels), tile = {**CASES, **DEEP_CASES}[name]
+    mm = mm_tf32x3
+    if name in DEEP_CASES:
+        mm = mm_chunked(emb.shape[1])
+        monkeypatch.setattr(port_flash, "_row_dot", row_dot_wide)
     lse, g, ref = _pallas(emb, w, labels, tile)
-    got = _port_bwd(emb, w, labels, lse, g, tile, mm_tf32x3, monkeypatch)
+    got = _port_bwd(emb, w, labels, lse, g, tile, mm, monkeypatch)
     rows, classes = _off_the_clip(emb, w, labels)
     assert rows.all() == (name not in ("margin_branches", "saturated"))
     for gt, r, keep in zip(got, ref, (rows, classes)):

@@ -19,8 +19,11 @@ to the plain version run in f64: the f32 plain version is itself ~3e-3 off
 there.  Two calls of either kernel on the same inputs give the same bits.
 The two kernels form the same cosine bits: with one class, the backward's
 gradients from the forward's own lse are exactly 0, at D <= 256 and at
-D > 256, where both stream the depth in chunks (D = 300, 512 and 1024 are
-held to the plain version in both directions).  The flash gradients
+D > 256, where the forward streams the depth in 128-deep chunks and the
+backward keeps them resident up to D = 512 (its wide route) and streams
+them beyond (D = 300, 301, 512 and 1024 are held to the plain version in
+both directions; D = 301 takes the 4-byte copies).  Each backward route
+holds as many blocks on an SM as its shared memory allows.  The flash gradients
 against the dense head's autograd (cuBLAS f32) at rtol 2e-3, atol 1e-6 as
 tests/test_flash_aam.py, and row by row within 1e-3.  Labels outside
 [0, C), the shard-local labels of a class-sharded head, give no target
@@ -92,7 +95,7 @@ def test_flash_aam_fwd_is_deterministic():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("B,D", [(256, 256), (100, 37), (256, 512), (100, 300)])
+@pytest.mark.parametrize("B,D", [(256, 256), (100, 37), (256, 512), (100, 300), (100, 301)])
 def test_fwd_and_bwd_cosines_agree_bit_for_bit(B, D, exact):
     """With one class and every label 0, the forward's lse is its zy, so the
     backward's p = exp(z − lse) is exactly 1 and its gradients exactly 0
@@ -215,18 +218,33 @@ def test_flash_aam_off_shard_labels_match_plain(B, C, D, how):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [300, 512, 1024])
+@pytest.mark.parametrize("D", [300, 301, 512, 1024])
 def test_flash_aam_deep_rows_match_plain(D):
-    """D > 256 (the chunked path of both kernels) against the plain
-    versions at the bars above, forward and backward."""
+    """D > 256 (the forward's chunked path; the backward's wide route up to
+    512 and its chunked route beyond) against the plain versions at the bars
+    above, forward and backward."""
+    route = "wide" if D <= 512 else "chunks"
+    before = flash_aam.flash_aam_bwd.route_launches[route]
     test_flash_aam_fwd_matches_plain(100, 2001, D)
     test_flash_aam_bwd_matches_plain(100, 2001, D, False)
+    assert flash_aam.flash_aam_bwd.route_launches[route] == before + 1
 
 
 @pytest.mark.gpu
-def test_flash_aam_bwd_is_deterministic():
+@pytest.mark.parametrize("D,blocks", [(37, 2), (256, 2), (257, 1), (301, 1), (512, 1),
+                                      (513, 2), (1024, 2)])
+def test_flash_aam_bwd_blocks_per_sm_by_route(D, blocks):
+    """The occupancy the split rule reads: two blocks an SM for the tiles
+    and chunked routes, one for the wide route (256 < D <= 512)."""
     dev = _card()
-    args = _bwd_case(dev, 256, 7325, 256)
+    assert flash_aam._bwd_blocks_per_sm(dev.index or 0, D) == blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [256, 300, 301, 512])
+def test_flash_aam_bwd_is_deterministic(D):
+    dev = _card()
+    args = _bwd_case(dev, 256, 7325, D)
     first = flash_aam.flash_aam_bwd(*args)
     second = flash_aam.flash_aam_bwd(*args)
     torch.cuda.synchronize()
