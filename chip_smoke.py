@@ -11,22 +11,27 @@ Phases, one JSON line each:
           source, all at once (seconds, ptxas registers, shared memory and
           spills, and the tensor-core HMMA instructions cuobjdump finds in
           each: both kernels run on the tensor cores, so neither may have
-          none; the backward's wide route may not spill);
+          none; the backward's wide and cluster routes may not spill);
   kernel  each kernel against its plain PyTorch version on the card, at the
           shapes of the paths and beyond: D = 256; the deep D = 512, 300 and
           301 (4-byte copies), which the backward takes through its wide
-          route; and D = 1024, its chunked route (a gradient row by row,
-          each row within 1e-3 of its own norm, with planted faults the
-          check must reject; the backward also with every target p ≈ 0.993
-          against the plain version in f64, at D = 37, and twice for the
-          same bits at D = 256 and every deep D), with its time, the plain
-          version's time, a dense library yardstick's time and two roofline
-          bounds (f32 CUDA cores; 3×TF32 tensor cores); then the two kernels
-          against each other: with one class the backward's gradients are
-          exactly 0 iff both formed the same cosine bits (check_consistency,
-          D = 256, 37, 512, 300 and 301); and one flash and one dense
-          ResNet-34 train step of a 512-wide embedding agree, with both
-          steps' ms and the flash step's device ms and kernel share;
+          route; D = 1024, 777 (4-byte copies, a ragged last slice) and
+          2048 (a cluster of 8), its cluster route; and D = 2304, its
+          chunked route (a gradient row by row, each row within 1e-3 of its
+          own norm, with planted faults the check must reject; the backward
+          also with every target p ≈ 0.993 against the plain version in
+          f64 at D = 256, 512 and 1024, at D = 37, with labels off the shard
+          at D = 256, 300 and 1024, and twice for the same bits at D = 256
+          and every deep D), with its time, the plain version's time, a
+          dense library yardstick's time and two roofline bounds (f32 CUDA
+          cores; 3×TF32 tensor cores); then the two kernels against each
+          other: with one class the backward's gradients are exactly 0 iff
+          both formed the same cosine bits (check_consistency, D = 256, 37,
+          512, 300, 301, 1024 and 777); and one flash and one dense
+          ResNet-34 train step of a 512-wide and of a 1024-wide embedding
+          agree, every backward launch of each path on its route (wide,
+          cluster), with both steps' ms and the flash step's device ms and
+          kernel share; the phase within 150 s;
   slice   the serving path at full width — 128 six-second utterances through
           wav_to_train_feats → ResNet-34 SpeakerModel (7325-speaker AAM head,
           seeded random weights) → extract_embeddings → the flash eval step →
@@ -136,7 +141,8 @@ Phases, one JSON line each:
           dryrun_multichip(2); the phase within 150 s;
   kernels every kernel with its launches on the paths and its errors (the
           backward's also with a `deep` record of its times at 256 × 7325 ×
-          512).
+          512), and the backward's cluster route on its own row (timed at
+          100 × 7001 × 1024, with a `deep` record at 256 × 7325 × 1024).
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
 or outside a checkout, it fails at once and prints no result.
@@ -328,20 +334,22 @@ def phase_build():
               "wall_seconds_all": wall, "ptxas": info["ptxas"], "hmma_instructions": hmma})
         check(hmma > 0, f"the {name} library has no HMMA instruction")
     # the backward's route for 256 < D <= 512 holds a 32 x 512 accumulator a
-    # block in registers: it must not spill
-    wide = {k: v for k, v in _native.BUILD_INFO["flash_aam_bwd"]["ptxas"].items()
-            if "bwd_wide_kernel" in k}
-    check(len(wide) == 2, f"ptxas reported {len(wide)} bwd_wide_kernel instantiations, not 2")
-    for k, v in wide.items():
-        check(v.get("spill_bytes") == 0, f"{k} spills: {v}")
+    # block in registers, its cluster route (512 < D <= 2048) a 32 x 256
+    # slice in the 128 registers of two blocks an SM: neither may spill
+    ptxas = _native.BUILD_INFO["flash_aam_bwd"]["ptxas"]
+    for kernel in ("bwd_wide_kernel", "bwd_cluster_kernel"):
+        found = {k: v for k, v in ptxas.items() if kernel in k}
+        check(len(found) == 2, f"ptxas reported {len(found)} {kernel} instantiations, not 2")
+        for k, v in found.items():
+            check(v.get("spill_bytes") == 0, f"{k} spills: {v}")
 
 
 # target cosine of the confident case, by D: every target p ≈ 0.993 at
 # C = 7325.  The non-target logits s·cos spread as s/√D, so they sum to
 # about (C − 1)·exp(s²/2D), and the target logit s·phi(cos) must be
 # ln(0.993/0.007) above that sum's log: cos = 0.68 at D = 256, 0.654 at
-# D = 512
-CONFIDENT_COS = {256: 0.68, 512: 0.654}
+# D = 512, 0.642 at D = 1024
+CONFIDENT_COS = {256: 0.68, 512: 0.654, 1024: 0.642}
 
 
 def _flash_inputs(torch, B, C, D, seed, saturated=False, confident=False):
@@ -444,7 +452,8 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
     return row
 
 
-BWD_KERNELS = ("bwd_tiles_kernel", "bwd_wide_kernel", "bwd_chunks_kernel", "bwd_de_sum_kernel")
+BWD_KERNELS = ("bwd_tiles_kernel", "bwd_wide_kernel", "bwd_cluster_kernel", "bwd_chunks_kernel",
+               "bwd_de_sum_kernel")
 ROW_TOL = 1e-3
 
 
@@ -712,12 +721,15 @@ def check_consistency(torch, B, D, seed, exact):
     return row
 
 
+KERNEL_BUDGET_S = 150.0
+
+
 def phase_kernel(torch, smi_line):
     t0 = time.perf_counter()
     # D > 256 (the chunked path of the forward; the backward's wide route up
-    # to 512 and its chunked route beyond): the 512-wide embedding at the
-    # train batch, a ragged 100 x 7001 x 300, and D = 301, whose rows take
-    # 4-byte copies
+    # to 512, its cluster route to 2048 and its chunked route beyond): the
+    # 512-wide embedding at the train batch, a ragged 100 x 7001 x 300, and
+    # D = 301, whose rows take 4-byte copies
     cases = [("slice_eval", BATCH, SPK, 256, True), ("path_b256", 256, SPK, 256, True),
              ("path_b1024", 1024, SPK, 256, True), ("scale_c131072", 256, 131072, 256, True),
              ("ragged", 100, 7001, 256, False), ("path_b256_d512", 256, SPK, 512, True),
@@ -730,13 +742,19 @@ def phase_kernel(torch, smi_line):
                  ("scale_c131072", 256, 131072, 256, True), ("ragged", 100, 7001, 256, True),
                  ("train_b256_d512", TRAIN_B, SPK, 512, True),
                  ("ragged_d300", 100, 7001, 300, True), ("ragged_d301", 100, 7001, 301, False),
-                 ("ragged_d1024", 100, 7001, 1024, True)]
+                 # the cluster route (512 < D <= 2048): 4-byte copies and a
+                 # ragged last slice at 777, a cluster of 8 at 2048; beyond
+                 # it the chunked route, timed against the library
+                 ("ragged_d1024", 100, 7001, 1024, True), ("ragged_d777", 100, 7001, 777, False),
+                 ("train_b256_d1024", TRAIN_B, SPK, 1024, True),
+                 ("b64_d2048", 64, 7001, 2048, False), ("ragged_d2304", 100, 7001, 2304, True)]
     bwd_rows = [check_flash_bwd_case(torch, name, B, C, D, seed=20 + i, timed=timed,
                                      repeat=(i == 0 or D > 256))
                 for i, (name, B, C, D, timed) in enumerate(bwd_cases)]
     bwd_rows.append(check_flash_bwd_case(torch, "saturated", 4, 300, 256, seed=29,
                                          saturated=True, timed=False))
-    for name, D, seed in (("confident", 256, 30), ("confident_d512", 512, 32)):
+    for name, D, seed in (("confident", 256, 30), ("confident_d512", 512, 32),
+                          ("confident_d1024", 1024, 33)):
         bwd_rows.append(check_flash_bwd_case(torch, name, TRAIN_B, SPK, D, seed=seed,
                                              timed=False, confident=True))
     bwd_rows.append(check_flash_bwd_case(torch, "ragged_depth", 100, 7001, 37, seed=31,
@@ -746,31 +764,36 @@ def phase_kernel(torch, smi_line):
     for i, how in enumerate(OFF_SHARD):
         check_offshard_case(torch, "b256", TRAIN_B, SPK, 256, 50 + i, how)
     check_offshard_case(torch, "ragged_d300", 100, 7001, 300, 53, "minus_c")
-    for i, (B, D) in enumerate(((256, 256), (100, 37), (256, 512), (100, 300), (100, 301))):
+    check_offshard_case(torch, "ragged_d1024", 100, 7001, 1024, 54, "mixed")
+    for i, (B, D) in enumerate(((256, 256), (100, 37), (256, 512), (100, 300), (100, 301),
+                                (100, 1024), (100, 777))):
         for exact in (True, False):
             check_consistency(torch, B, D, seed=40 + i, exact=exact)
-    wide_launches = check_wide_train(torch, smi_line)
-    emit({"phase": "kernel", "kernel": "all", "phase_s": time.perf_counter() - t0,
-          "card": smi_line})
+    wide_launches = {D: check_wide_train(torch, smi_line, D) for D in (512, 1024)}
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "kernel", "kernel": "all", "phase_s": phase_s, "card": smi_line})
+    check(phase_s <= KERNEL_BUDGET_S, f"the kernel phase took {phase_s:.1f} s "
+                                      f"(budget {KERNEL_BUDGET_S} s)")
     return rows, bwd_rows, wide_launches
 
 
 WIDE_B = 128
 
 
-def check_wide_train(torch, smi_line):
-    """A 512-wide embedding (SpeakerModel(emb_dim=512), D = 512: the forward's
-    chunked kernel and the backward's wide route): one flash step and one
-    dense step from the same weights agree (flash_dense_agree); then both
-    steps' ms (_median_step_ms) and the flash step's device ms with its
-    kernels' share."""
+def check_wide_train(torch, smi_line, D):
+    """A D-wide embedding (SpeakerModel(emb_dim=D); the forward's chunked
+    kernel, and the backward's wide route at D = 512, its cluster route at
+    1024): one flash step and one dense step from the same weights agree
+    (flash_dense_agree), and every backward launch of the path takes that
+    route; then both steps' ms (_median_step_ms) and the flash step's
+    device ms with its kernels' share."""
     from pkr_tpu_torch.models import SpeakerModel
     from pkr_tpu_torch.ops import flash_aam as fa
     from pkr_tpu_torch.train import cosine_epoch_lr, create_train_state, make_train_step
 
     dev = torch.device("cuda")
     torch.manual_seed(3)
-    model = SpeakerModel(SPK, 40, "mean+std", "AAM", trunk="resnet34", emb_dim=512,
+    model = SpeakerModel(SPK, 40, "mean+std", "AAM", trunk="resnet34", emb_dim=D,
                          dtype=torch.bfloat16, device=dev)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -779,7 +802,8 @@ def check_wide_train(torch, smi_line):
     lr = cosine_epoch_lr(0.1, 10)(0)
     steps = {"flash": make_train_step(model, flash_aam=True), "dense": make_train_step(model)}
 
-    # --- the 512-wide path, with the kernel counts at 0 just before it ---
+    route = "wide" if D <= 512 else "cluster"
+    # --- the D-wide path, with the kernel counts at 0 just before it ---
     fa.flash_aam_fwd.launches = 0
     fa.flash_aam_bwd.launches = 0
     fa.flash_aam_bwd.route_launches = dict.fromkeys(fa.flash_aam_bwd.route_launches, 0)
@@ -795,10 +819,10 @@ def check_wide_train(torch, smi_line):
     launches = {"flash_aam_fwd": fa.flash_aam_fwd.launches,
                 "flash_aam_bwd": fa.flash_aam_bwd.launches,
                 "flash_aam_bwd_routes": dict(fa.flash_aam_bwd.route_launches)}
-    # --- end of the 512-wide path ---
-    check(launches["flash_aam_fwd"] > 0 and launches["flash_aam_bwd_routes"]["wide"] > 0 and
-          launches["flash_aam_bwd"] == launches["flash_aam_bwd_routes"]["wide"],
-          f"the 512-wide train path did not run the backward's wide route alone: {launches}")
+    # --- end of the D-wide path ---
+    check(launches["flash_aam_fwd"] > 0 and launches["flash_aam_bwd_routes"][route] > 0 and
+          launches["flash_aam_bwd"] == launches["flash_aam_bwd_routes"][route],
+          f"the {D}-wide train path did not run the backward's {route} route alone: {launches}")
     model.load_state_dict(init)
     st = create_train_state(model)
     flash = speed["flash"]
@@ -806,10 +830,10 @@ def check_wide_train(torch, smi_line):
     flash["flash_kernels_ms"] = device_ms(torch, lambda: steps["flash"](st, x, y, lr), 2,
                                           only=BWD_KERNELS + FWD_KERNELS)[0]
     check(flash["device_ms"] is not None and flash["flash_kernels_ms"] is not None,
-          "the 512-wide flash step's trace shows no device time")
+          f"the {D}-wide flash step's trace shows no device time")
     flash["flash_kernels_share"] = flash["flash_kernels_ms"] / flash["device_ms"]
-    emit({"phase": "kernel", "kernel": "train_step", "case": "emb_dim_512", "B": WIDE_B,
-          "C": SPK, "D": 512, "launches": launches, "agree": agree, "speed": speed,
+    emit({"phase": "kernel", "kernel": "train_step", "case": f"emb_dim_{D}", "B": WIDE_B,
+          "C": SPK, "D": D, "launches": launches, "agree": agree, "speed": speed,
           "card": smi_line})
     return launches
 
@@ -2795,7 +2819,8 @@ def main():
                       "pkr_tpu/ops/flash_aam.py:53",
                       {"slice": launches["flash_aam_fwd"],
                        "train": train_launches["flash_aam_fwd"],
-                       "train_d512": wide_launches["flash_aam_fwd"],
+                       "train_d512": wide_launches[512]["flash_aam_fwd"],
+                       "train_d1024": wide_launches[1024]["flash_aam_fwd"],
                        "corpus": corpus_launches["flash_aam_fwd"],
                        "recipe": recipe_launches["flash_aam_fwd"],
                        "zoo": zoo_launches["flash_aam_fwd"],
@@ -2804,13 +2829,23 @@ def main():
         _kernel_entry("flash_aam_bwd", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
                       "pkr_tpu/ops/flash_aam.py:197",
                       {"train": train_launches["flash_aam_bwd"],
-                       "train_d512": wide_launches["flash_aam_bwd"],
+                       "train_d512": wide_launches[512]["flash_aam_bwd"],
+                       "train_d1024": wide_launches[1024]["flash_aam_bwd"],
                        "corpus": corpus_launches["flash_aam_bwd"],
                        "recipe": recipe_launches["flash_aam_bwd"],
                        "zoo": zoo_launches["flash_aam_bwd"],
                        "parallel": parallel_launches["flash_aam_bwd"]},
                       bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"),
-                      deep_row=next(r for r in bwd_rows if r["case"] == "train_b256_d512"))]
+                      deep_row=next(r for r in bwd_rows if r["case"] == "train_b256_d512")),
+        # the backward's cluster route (512 < D <= 2048), timed at 100 x
+        # 7001 x 1024 and launched on the 1024-wide train path
+        _kernel_entry("bwd_cluster_kernel", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
+                      "pkr_tpu/ops/flash_aam.py:197",
+                      {"train_d1024": wide_launches[1024]["flash_aam_bwd_routes"]["cluster"]},
+                      [r for r in bwd_rows if 512 < r["D"] <= 2048],
+                      next(r for r in bwd_rows if r["case"] == "ragged_d1024"),
+                      ("max_abs_err_de", "max_abs_err_dw"),
+                      deep_row=next(r for r in bwd_rows if r["case"] == "train_b256_d1024"))]
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

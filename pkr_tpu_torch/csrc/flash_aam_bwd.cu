@@ -57,7 +57,7 @@
 // instead of scaling every staged W element, and the a tile is split into
 // its TF32 parts once, where it is formed, not by every warp that reads it.
 //
-// Three routes by depth, one launch each (launch):
+// Four routes by depth, one launch each (launch):
 //   D <= DMAX (256): bwd_tiles_kernel (dw_block, de_block).  Rows padded
 //     to padded_depth(D) with zeros; three tiles fit twice in an SM's shared
 //     memory, so two blocks run on each SM and one block's barriers overlap
@@ -80,11 +80,39 @@
 //     tried on an H100 and left out, both spilling without a clear gain:
 //     16 warps of one slab each (128 registers a thread), and a cosine
 //     that exchanges all its chunks at one barrier (255); see PERF.md.
-//   D > WMAX: bwd_chunks_kernel (dw_chunks_block, de_chunks_block).  Three
-//     full-depth tiles no longer fit, so the cosine tiles stream the depth
-//     through chunked_cosine and the second products run over 256-wide
-//     output chunks, recomputing the cosine tiles for each; two blocks an
-//     SM, as the tiles kernel.
+//   WMAX < D <= CMAX (2048): bwd_cluster_kernel (dw_cluster_block,
+//     de_cluster_block).  Three full-depth tiles no longer fit one block,
+//     nor a 32 x D accumulator its registers, so a thread-block cluster of
+//     n_s = n_slices(D) blocks (at most 8, the portable size) splits the
+//     depth into SW = 256-wide slices: each block is a tiles-route block of
+//     depth 256 on its slice (the stationary tile resident, the streamed
+//     ones through one buffer, a 32 x 256 accumulator, warp w on the
+//     slice's depths [32 w, 32 w + 32)).  Only the cosine needs the whole
+//     depth: each block forms its two chunks' cosine_dots (and tile_sq for
+//     the norms) and publishes them unsummed in its shared memory; after a
+//     cluster barrier every block adds all n_chunks(D) partials, read
+//     through distributed shared memory, in chunk order, which is
+//     chunked_cosine's sum, so every block forms the same a tile with the
+//     forward's bits.  Each pass
+//     forms each cosine tile once (8*B*C*D over both passes).  The exchange
+//     buffers alternate between tiles, so one barrier a tile suffices: a
+//     block rewrites a buffer only past the barrier that its peers reach
+//     after reading it.  dW's projection is each slice's sum added over the
+//     slices in slice order, exchanged the same way, and every block ends
+//     at a cluster barrier, so no block leaves while a peer reads its
+//     shared memory.  What bounds it is the waits of each block (the
+//     cluster barrier, the reads of the peers' partials, the copies): so
+//     the streamed tiles take one buffer, not two, which brings a block to
+//     94 KB and puts two blocks on each SM, one running while the other
+//     waits (a layout with two buffers at one block an SM was slower on an
+//     H100 at every shape timed; see PERF.md).  The de pass's splits are
+//     sized by the clusters that the card holds at once
+//     (flash_aam_bwd_clusters), and its clusters come first in the grid.
+//   D > CMAX: bwd_chunks_kernel (dw_chunks_block, de_chunks_block).  A
+//     cluster would exceed the portable size, so the cosine tiles stream the
+//     depth through chunked_cosine and the second products run over
+//     256-wide output chunks, recomputing the cosine tiles for each; two
+//     blocks an SM, as the tiles kernel.
 //
 // Numerics against the forward.  The cosine tile (tile_rnorms, cosine_dots)
 // is flash_aam_cosine.cuh's, which the forward kernel calls on the same
@@ -94,7 +122,8 @@
 // sin_m * cos / sin and one ulp of cosine would move p by up to ~1e-3.  A
 // saturated cosine is exact: 1.0 and 2.0 split into TF32 with no
 // remainder, and 1/||w|| = 0.5.  Above DMAX the forward streams 128-deep
-// chunks (chunked_cosine); the wide and chunked routes both form its bits.
+// chunks (chunked_cosine); the wide, cluster and chunked routes all form
+// its bits.
 // Rows of e and W whose length is a multiple of 4 are staged with 16-byte
 // cp.async copies; other D take 4-byte copies (VEC = 1).
 
@@ -577,7 +606,255 @@ __device__ __forceinline__ void de_wide_block(float* smem, int row_tile, int spl
     }
 }
 
-// D > WMAX.  The cosine tiles stream the depth through chunked_cosine (the
+// WMAX < D <= CMAX: a cluster of n_slices(D) blocks per unit of work, block
+// `slice` (its rank in the cluster) holding the depths [SW slice, SW slice
+// + SW) of every tile (stage_slice) and warp w the 32 of them from 32 w on.
+// Both passes share one layout (the de pass leaves the projection scratch
+// unused): two slice tiles (the stationary one and one buffer for the
+// streamed tiles), the a tile's parts, rinv, projection scratch, two cosine
+// exchange buffers, and what the block publishes to its peers: two buffers
+// of two chunks' partials, two of two chunks' sums of squares, and its
+// slice's share of the projection.  96,096 bytes: two blocks an SM.
+__host__ __device__ inline int cluster_smem_floats() {
+  return 2 * 2 * TB * KC + 2 * TB * TC + TC + WARPS * TC + 2 * WARPS * 128 +
+         2 * 2 * THREADS * 4 + 2 * 2 * TC + TC;
+}
+
+// The dW pass for WMAX < D <= CMAX, one cluster per TC-class tile.  Each
+// block keeps its slice of the W tile, streams e's batch tiles at its
+// slice through one buffer (the next tile's copy starts once every warp is
+// done with the current one; the SM's other block runs meanwhile), and
+// accumulates dw_hat over its slice in registers; for each
+// batch tile the cluster exchanges the chunks' cosine partials (and, with
+// the first, the sums of squares for 1/||w||) so that every block forms the
+// whole a tile.  The projection dw_hat . w_hat is each slice's sum (the
+// lanes of a class, then the warps in order) added over the slices in
+// slice order, then each block writes its slice of dW once.
+template <int VEC>
+__device__ __forceinline__ void dw_cluster_block(float* smem, int tile, int slice,
+                                                 const float* __restrict__ e,
+                                                 const float* __restrict__ w,
+                                                 const int* __restrict__ labels,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ g, int B, int C,
+                                                 int D, const Margin& mg,
+                                                 float* __restrict__ dw) {
+  constexpr int T = 2 * TB * KC;                     // one slice tile
+  float* ws = smem;                                  // W tile's slice
+  float* es = ws + T;                                // e's batch tile's slice
+  float* at_big = ws + 2 * T;                        // [TB][TC]
+  float* at_small = at_big + TB * TC;                // [TB][TC]
+  float* rinv = at_small + TB * TC;                  // [TC]
+  float* projp = rinv + TC;                          // [WARPS][TC]
+  float* xch = projp + WARPS * TC;                   // [2][WARPS][4][32]
+  float* pub = xch + 2 * WARPS * 128;                // [2][2][THREADS][4], published
+  float* sqp = pub + 2 * 2 * THREADS * 4;            // [2][TC], published once
+  float* projx = sqp + 2 * 2 * TC;                   // [TC], published
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int col0 = tile * TC;
+  const int n_bt = (B + TB - 1) / TB;
+  const int n_ch = n_chunks(D);
+  const int k0 = 2 * slice;
+  const int n_s = n_slices(D);
+  const int d0 = slice * SW + 32 * warp;   // this warp's first depth
+  const bool has_cols = d0 < D;
+  const float* wslab = ws + (warp >> 2) * TC * KC;
+
+  stage_slice<VEC>(ws, w, col0, C, D, slice);
+  stage_slice<VEC>(es, e, 0, B, D, slice);
+  tf32x3::commit();
+  tf32x3::wait_pending<0>();
+  __syncthreads();
+  slice_sq(ws, k0, n_ch, sqp);  // the first cluster barrier publishes it
+
+  float acc[2][4][4] = {};
+  for (int bt = 0; bt < n_bt; ++bt) {
+    tf32x3::wait_pending<0>();
+    __syncthreads();  // tile bt has landed
+    // buffer bt % 2 is free: every peer read it at tile bt - 2 before it
+    // arrived at tile bt - 1's barrier, which this block has passed
+    float* pb = pub + (bt & 1) * 2 * THREADS * 4;
+    slice_partials(es, ws, k0, n_ch, xch, pb);
+    cluster_arrive();
+    const Rows rd = row_data(labels, lse, g, B, bt * TB);
+    cluster_wait();
+    if (bt == 0) {
+      cluster_rnorms(sqp, n_ch, rinv);
+      __syncthreads();
+    }
+    float dot[4];
+    cluster_dot(dot, pb, n_ch);
+    a_tile<false>(dot, rinv, rd, C, col0, mg, at_big, at_small);
+    __syncthreads();
+    if (has_cols)
+      tf32x3::warp_mma_k32<K_ROWS>(acc, at_big, at_small, es + (warp >> 2) * TB * KC, KC,
+                                   32 * (warp & 3));
+    if (bt + 1 < n_bt) {
+      __syncthreads();  // every warp is done with tile bt
+      stage_slice<VEC>(es, e, (bt + 1) * TB, B, D, slice);
+      tf32x3::commit();
+    }
+  }
+
+  // acc[i][j][q] holds class 16 i + lane / 4 + 8 (q / 2) at depth
+  // d0 + 8 j + 2 (lane % 4) + q % 2; w_hat is read back from the W slice
+  auto w_hat = [&](int cls, int j, int q) {
+    return __fmul_rn(wslab[at(cls, 32 * (warp & 3) + 8 * j + 2 * (lane & 3) + q, KC)],
+                     rinv[cls]);
+  };
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cls = 16 * i + (lane >> 2) + 8 * h;
+      float proj = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) proj = fmaf(acc[i][j][2 * h + q], w_hat(cls, j, q), proj);
+      // the 4 lanes of a class are neighbours in the warp
+      proj += __shfl_xor_sync(FULL, proj, 1);
+      proj += __shfl_xor_sync(FULL, proj, 2);
+      if ((lane & 3) == 0) projp[warp * TC + cls] = proj;
+    }
+  __syncthreads();
+  if ((int)threadIdx.x < TC) {
+    float proj = 0.0f;
+    for (int k = 0; k < WARPS; ++k) proj += projp[k * TC + threadIdx.x];
+    projx[threadIdx.x] = proj;
+  }
+  cluster_arrive();
+  cluster_wait();
+  // the whole projection of each class, the slices' shares in slice order,
+  // into projp's first row (every thread of the block is past its reads)
+  if ((int)threadIdx.x < TC) {
+    float proj = 0.0f;
+    for (int r = 0; r < n_s; ++r) {
+      const float v = *cluster_map(projx + threadIdx.x, r);
+      proj = r ? __fadd_rn(proj, v) : v;
+    }
+    projp[threadIdx.x] = proj;
+  }
+  __syncthreads();
+  cluster_arrive();  // this block reads no peer's shared memory any more
+  if (has_cols) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int cls = 16 * i + (lane >> 2) + 8 * h;
+        const int c = col0 + cls;
+        if (c >= C) continue;
+        const float proj = projp[cls];
+        const float ri = rinv[cls];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int d = d0 + 8 * j + 2 * (lane & 3) + q;
+            if (d < D)
+              dw[(size_t)c * D + d] = __fmul_rn(
+                  __fsub_rn(acc[i][j][2 * h + q], __fmul_rn(proj, w_hat(cls, j, q))), ri);
+          }
+      }
+  }
+  cluster_wait();  // no block leaves while a peer may read its shared memory
+}
+
+// The de pass for WMAX < D <= CMAX, one cluster per (batch tile, class
+// split): each block keeps its slice of the e tile, streams its split's W
+// tiles at its slice through one buffer as the dW pass streams e's, and
+// writes part[split]'s depths of its slice; for each class tile the
+// cluster exchanges the cosine partials and the sums of squares.
+template <int VEC>
+__device__ __forceinline__ void de_cluster_block(float* smem, int row_tile, int split, int slice,
+                                                 const float* __restrict__ e,
+                                                 const float* __restrict__ w,
+                                                 const int* __restrict__ labels,
+                                                 const float* __restrict__ lse,
+                                                 const float* __restrict__ g, int B, int C,
+                                                 int D, int tiles_per_split, const Margin& mg,
+                                                 float* __restrict__ part) {
+  constexpr int T = 2 * TB * KC;
+  float* es = smem;                                  // e tile's slice
+  float* wt = es + T;                                // W tile t's slice
+  float* at_big = es + 2 * T;                        // [TB][TC]
+  float* at_small = at_big + TB * TC;                // [TB][TC]
+  float* rinv = at_small + TB * TC;                  // [TC]
+  float* xch = rinv + TC + WARPS * TC;               // [2][WARPS][4][32]
+  float* pub = xch + 2 * WARPS * 128;                // [2][2][THREADS][4], published
+  float* sqp = pub + 2 * 2 * THREADS * 4;            // [2][2][TC], published
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = row_tile * TB;
+  const int n_tiles = (C + TC - 1) / TC;
+  const int tile_lo = split * tiles_per_split;
+  const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
+  const int n_ch = n_chunks(D);
+  const int k0 = 2 * slice;
+  const int d0 = slice * SW + 32 * warp;
+  const bool has_cols = d0 < D;
+
+  stage_slice<VEC>(es, e, row0, B, D, slice);
+  stage_slice<VEC>(wt, w, tile_lo * TC, C, D, slice);
+  tf32x3::commit();
+
+  float acc[2][4][4] = {};
+  for (int t = tile_lo; t < tile_hi; ++t) {
+    const int cur = (t - tile_lo) & 1;
+    tf32x3::wait_pending<0>();
+    __syncthreads();  // tile t has landed
+    // buffer cur is free, as in the dW pass
+    float* pb = pub + cur * 2 * THREADS * 4;
+    float* sb = sqp + cur * 2 * TC;
+    slice_partials(es, wt, k0, n_ch, xch, pb);
+    slice_sq(wt, k0, n_ch, sb);
+    cluster_arrive();
+    // loaded for every tile, so that it holds no register across the cosine
+    // (two blocks an SM leave 128 a thread)
+    const Rows rd = row_data(labels, lse, g, B, row0);
+    cluster_wait();
+    cluster_rnorms(sb, n_ch, rinv);
+    float dot[4];
+    cluster_dot(dot, pb, n_ch);
+    __syncthreads();  // rinv
+    a_tile<true>(dot, rinv, rd, C, t * TC, mg, at_big, at_small);
+    __syncthreads();
+    if (has_cols)
+      tf32x3::warp_mma_k32<MK_ROWS>(acc, at_big, at_small, wt + (warp >> 2) * TC * KC, KC,
+                                    32 * (warp & 3));
+    if (t + 1 < tile_hi) {
+      __syncthreads();  // every warp is done with tile t
+      stage_slice<VEC>(wt, w, (t + 1) * TC, C, D, slice);
+      tf32x3::commit();
+    }
+  }
+
+  cluster_arrive();  // this block reads no peer's shared memory any more
+  if (has_cols) {
+    float* out = part + (size_t)split * B * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * i + (lane >> 2) + 8 * h;
+        if (r >= B) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int d = d0 + 8 * j + 2 * (lane & 3) + q;
+            if (d < D) out[(size_t)r * D + d] = acc[i][j][2 * h + q];
+          }
+      }
+  }
+  cluster_wait();  // no block leaves while a peer may read its shared memory
+}
+
+// D > CMAX.  The cosine tiles stream the depth through chunked_cosine (the
 // forward's chunks, so the cosines keep the forward's bits), and the second
 // products run over output depth chunks of OC = 32 * WARPS, warp w taking
 // the depths [32 w, 32 w + 32) of each: the block loops over the output
@@ -586,7 +863,10 @@ __device__ __forceinline__ void de_wide_block(float* smem, int row_tile, int spl
 // cosine work of one pass.  xo holds the output chunk's other operand.
 constexpr int OC = 32 * WARPS;
 
-// The dW pass for D > WMAX, one block per TC-class tile.  For each output
+static_assert(OC == SW, "the cluster route's slices are these output chunks: one order of dW's "
+                        "projection");
+
+// The dW pass for D > CMAX, one block per TC-class tile.  For each output
 // chunk, dw_hat's columns of it are written to dw unprojected and their
 // share of proj = dw_hat . w_hat is added to projs in chunk order; a last
 // sweep then applies dW = (dw_hat - proj w_hat) / ||w|| in place.
@@ -683,7 +963,7 @@ __device__ __forceinline__ void dw_chunks_block(float* smem, int tile,
   }
 }
 
-// The de pass for D > WMAX, one block per (batch tile, class split):
+// The de pass for D > CMAX, one block per (batch tile, class split):
 // part[split] = a[rows, split] w_hat, output chunk by output chunk.
 template <int VEC>
 __device__ __forceinline__ void de_chunks_block(float* smem, int row_tile, int split,
@@ -785,7 +1065,34 @@ bwd_wide_kernel(const float* __restrict__ e, const float* __restrict__ w,
   }
 }
 
-// The two passes for D > WMAX, on the tiles kernel's blocks.
+// The two passes for WMAX < D <= CMAX, launched in clusters of
+// n_slices(D) blocks, consecutive in x, each block on the slice of its
+// rank.  The de pass comes first: cluster u < n_de runs it on (batch tile,
+// split) u, the rest the dW pass on class tile u - n_de.  A de cluster
+// walks a whole split and a dW cluster only the batch tiles, so the long
+// ones start first and the short ones fill the SMs around them.  Two
+// blocks an SM.
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+bwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
+                   const int* __restrict__ labels, const float* __restrict__ lse,
+                   const float* __restrict__ g, int B, int C, int D, int tiles_per_split,
+                   Margin mg, float* __restrict__ part, float* __restrict__ dw) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_dw = (C + TC - 1) / TC;
+  const int n_de = (int)gridDim.x / n_slices(D) - n_dw;
+  const int unit = blockIdx.x / n_slices(D);
+  const int slice = cluster_rank();
+  if (unit < n_de) {
+    const int n_rt = (B + TB - 1) / TB;
+    de_cluster_block<VEC>(smem, unit % n_rt, unit / n_rt, slice, e, w, labels, lse, g, B, C,
+                          D, tiles_per_split, mg, part);
+  } else {
+    dw_cluster_block<VEC>(smem, unit - n_de, slice, e, w, labels, lse, g, B, C, D, mg, dw);
+  }
+}
+
+// The two passes for D > CMAX, on the tiles kernel's blocks.
 template <int VEC>
 __global__ void __launch_bounds__(THREADS, 2)
 bwd_chunks_kernel(const float* __restrict__ e, const float* __restrict__ w,
@@ -826,6 +1133,9 @@ cudaError_t route(int D, const void** kernel, size_t* smem) {
   } else if (D <= WMAX) {
     *smem = sizeof(float) * wide_smem_floats(D);
     *kernel = reinterpret_cast<const void*>(bwd_wide_kernel<VEC>);
+  } else if (D <= CMAX) {
+    *smem = sizeof(float) * cluster_smem_floats();
+    *kernel = reinterpret_cast<const void*>(bwd_cluster_kernel<VEC>);
   } else {
     // the dW pass's layout again (the de pass's has no projection scratch)
     *smem = sizeof(float) * (2 * (TB + TC) * KC + TB * OC + 2 * TB * TC + TC + WARPS * TC + TC +
@@ -834,6 +1144,24 @@ cudaError_t route(int D, const void** kernel, size_t* smem) {
   }
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem);
+}
+
+// The cluster route's launch configuration for `clusters` clusters of
+// n_slices(D) blocks; attr must outlive its use.
+inline cudaLaunchConfig_t cluster_config(int D, int clusters, size_t smem, cudaStream_t st,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n_slices(D);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * n_slices(D));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 template <int VEC>
@@ -846,16 +1174,24 @@ cudaError_t launch(const float* e, const float* w, const int* labels, const floa
   size_t smem;
   cudaError_t err = route<VEC>(D, &kernel, &smem);
   if (err != cudaSuccess) return err;
-  if (D <= DMAX)
+  if (D <= DMAX) {
     bwd_tiles_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D,
                                                           padded_depth(D), tiles_per_split, mg,
                                                           part, dw);
-  else if (D <= WMAX)
+  } else if (D <= WMAX) {
     bwd_wide_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D,
                                                          tiles_per_split, mg, part, dw);
-  else
+  } else if (D <= CMAX) {
+    // a refused cluster launch returns its error: no other route stands in
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(D, blocks, smem, st, &attr);
+    err = cudaLaunchKernelEx(&cfg, bwd_cluster_kernel<VEC>, e, w, labels, lse, g, B, C, D,
+                             tiles_per_split, mg, part, dw);
+    if (err != cudaSuccess) return err;
+  } else {
     bwd_chunks_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D,
                                                            tiles_per_split, mg, part, dw);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = B * D;
@@ -871,8 +1207,28 @@ int flash_aam_bwd_block_rows() { return TB; }
 int flash_aam_bwd_block_classes() { return TC; }
 
 // The route that depth D takes: 0 bwd_tiles_kernel, 1 bwd_wide_kernel,
-// 2 bwd_chunks_kernel.
-int flash_aam_bwd_route(int D) { return D <= DMAX ? 0 : D <= WMAX ? 1 : 2; }
+// 2 bwd_chunks_kernel, 3 bwd_cluster_kernel.
+int flash_aam_bwd_route(int D) { return D <= DMAX ? 0 : D <= WMAX ? 1 : D <= CMAX ? 3 : 2; }
+
+// The blocks of one cluster of depth D's route: n_slices(D) on the cluster
+// route, 1 on the others.
+int flash_aam_bwd_cluster_size(int D) { return D > WMAX && D <= CMAX ? n_slices(D) : 1; }
+
+// The clusters of the cluster route for depth D that the current device
+// holds at once (cudaOccupancyMaxActiveClusters with the route's shared
+// memory; the 16-byte-copy kernel, as flash_aam_bwd_blocks_per_sm), or -1
+// off that route or on a CUDA error.
+int flash_aam_bwd_clusters(int D) {
+  const void* kernel;
+  size_t smem;
+  int clusters = 0;
+  cudaLaunchAttribute attr;
+  if (D <= WMAX || D > CMAX || route<4>(D, &kernel, &smem) != cudaSuccess) return -1;
+  const cudaLaunchConfig_t cfg = cluster_config(D, 1, smem, nullptr, &attr);
+  if (cudaOccupancyMaxActiveClusters(&clusters, bwd_cluster_kernel<4>, &cfg) != cudaSuccess)
+    return -1;
+  return clusters;
+}
 
 // The blocks of depth D's route that one SM of the current device holds at
 // once (cudaOccupancyMaxActiveBlocksPerMultiprocessor with the route's

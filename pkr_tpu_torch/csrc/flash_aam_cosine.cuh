@@ -19,7 +19,12 @@
 //             added in the same order.
 // Up to WMAX deep, the backward keeps every chunk of its tiles resident
 // instead (stage_chunks, resident_rnorms, resident_cosine) and forms the
-// same bits from them.
+// same bits from them.  Up to CMAX deep, a thread-block cluster of
+// n_slices(D) blocks splits the depth into SW-wide slices of two chunks each
+// (stage_slice): every block publishes its chunks' cosine_dots and tile_sq
+// unsummed (slice_partials, slice_sq) and adds all the cluster's in chunk
+// order through distributed shared memory (cluster_dot, cluster_rnorms), so
+// every block of the cluster holds the same bits, chunked_cosine's.
 #pragma once
 
 #include "flash_aam_common.cuh"
@@ -189,6 +194,107 @@ __device__ __forceinline__ void resident_cosine(float (&dot)[4], const float* es
 #pragma unroll
     for (int q = 0; q < 4; ++q) dot[q] = k ? __fadd_rn(dot[q], part[q]) : part[q];
   }
+}
+
+// ---- thread-block clusters (WMAX < D <= CMAX) ----
+
+constexpr int SW = 2 * KC;    // the depth of one block's slice
+constexpr int CMAX = 8 * SW;  // the portable cluster size (8) times SW
+
+__host__ __device__ inline int n_slices(int D) { return (D + SW - 1) / SW; }
+
+// The split barrier of the whole cluster: every thread of every block
+// arrives (its shared memory writes released to the cluster), then waits
+// (acquiring its peers').  Work between the two overlaps the peers' arrival.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// The generic address of p's counterpart in the shared memory of the
+// cluster's block `rank` (distributed shared memory).
+template <typename T>
+__device__ __forceinline__ const T* cluster_map(const T* p, int rank) {
+  unsigned long long out;
+  asm("mapa.u64 %0, %1, %2;\n" : "=l"(out) : "l"(reinterpret_cast<unsigned long long>(p)),
+      "r"(rank));
+  return reinterpret_cast<const T*>(out);
+}
+
+// Stage the depths [SW slice, SW slice + SW) of the 32 rows [row0, row0 + 32)
+// of x as two resident chunks (stage_chunks' layout: chunks 2 slice and
+// 2 slice + 1), zeros past D and past n_rows.  Commits no group.
+template <int VEC>
+__device__ __forceinline__ void stage_slice(float* dst, const float* __restrict__ x, int row0,
+                                            int n_rows, int D, int slice) {
+  static_assert(TB == TC, "one chunk size for both operands");
+  for (int c = 0; c < 2; ++c) {
+    const int d0 = (2 * slice + c) * KC;
+    // a chunk that starts at or past D is all zeros: no byte is read
+    tf32x3::stage_rows<VEC>(dst + c * TB * KC, KC, x + (d0 < D ? d0 : 0), D, row0, TB, n_rows,
+                            D - d0);
+  }
+}
+
+// The cosine_dots of the slice's chunks k0 and k0 + 1 that lie below n_ch,
+// from resident two-chunk tiles es and ws, each published unsummed: this
+// thread's four floats of chunk k0 + c at pub + c * THREADS * 4 +
+// 4 * threadIdx.x.  The chunks take the exchange buffers xch and
+// xch + WARPS * 128 in turn, as in resident_cosine; the caller syncs
+// between its last reads of xch and the next call.
+__device__ __forceinline__ void slice_partials(const float* es, const float* ws, int k0,
+                                               int n_ch, float* xch, float* pub) {
+  for (int c = 0; c < 2 && k0 + c < n_ch; ++c) {
+    float part[4];
+    cosine_dots(part, es + c * TB * KC, ws + c * TC * KC, KC, xch + c * WARPS * 128);
+    *reinterpret_cast<float4*>(pub + c * THREADS * 4 + 4 * threadIdx.x) =
+        make_float4(part[0], part[1], part[2], part[3]);
+  }
+}
+
+// The tile_sq of the slice's chunks k0 and k0 + 1 below n_ch of a resident
+// two-chunk TC-row tile, published at sq[c * TC + row].
+__device__ __forceinline__ void slice_sq(const float* ws, int k0, int n_ch, float* sq) {
+  for (int c = 0; c < 2 && k0 + c < n_ch; ++c) {
+    const float s = tile_sq(ws + c * TC * KC, KC);
+    if ((threadIdx.x & 7) == 0) sq[c * TC + (threadIdx.x >> 3)] = s;
+  }
+}
+
+// chunked_cosine's dot from the partials the cluster published
+// (slice_partials): chunk k's lies in block k / 2's pub, added with
+// __fadd_rn in chunk order.  Called between a cluster barrier that follows
+// every block's slice_partials and the next one.
+__device__ __forceinline__ void cluster_dot(float (&dot)[4], const float* pub, int n_ch) {
+  const float4* mine = reinterpret_cast<const float4*>(pub) + threadIdx.x;
+  for (int k = 0; k < n_ch; ++k) {
+    const float4 v = *cluster_map(mine + (k & 1) * THREADS, k >> 1);
+    const float p[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dot[q] = k ? __fadd_rn(dot[q], p[q]) : p[q];
+  }
+}
+
+// chunked_cosine's 1/||w|| from the sums of squares the cluster published
+// (slice_sq), added in chunk order; threads [0, TC) write rinv, which other
+// threads see after the next __syncthreads.
+__device__ __forceinline__ void cluster_rnorms(const float* sq, int n_ch, float* rinv) {
+  if ((int)threadIdx.x >= TC) return;
+  float s = 0.0f;
+  for (int k = 0; k < n_ch; ++k) {
+    const float v = *cluster_map(sq + (k & 1) * TC + threadIdx.x, k >> 1);
+    s = k ? __fadd_rn(s, v) : v;
+  }
+  rinv[threadIdx.x] = __frsqrt_rn(fmaxf(s, 1e-24f));
 }
 
 }  // namespace flash_aam

@@ -53,7 +53,8 @@ _BWD_KERNEL = "flash_aam_bwd"
 # CUDA blocks per SM to aim for when the forward splits the class axis: two
 # of its blocks fill an SM's shared memory at D = 256, and the chunked blocks
 # of D > 256 take about as much.  The backward asks its library instead
-# (_bwd_blocks_per_sm): its route for 256 < D <= 512 holds one block an SM.
+# (_bwd_occupancy): its routes for 256 < D <= 2048 hold one block an SM, and
+# the one above 512 runs in clusters.
 _BLOCKS_PER_SM = 2
 
 
@@ -208,15 +209,16 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def _n_splits(n_tiles, n_btiles, sms, blocks_per_sm):
+def _n_splits(n_tiles, n_btiles, units, per_unit):
     """(class tiles per split, splits) for ``n_btiles`` batch tiles over
-    ``n_tiles`` class tiles on ``sms`` SMs that hold ``blocks_per_sm`` blocks
-    each.  Each (batch tile, split) block takes the even share of the
-    card's target = sms × blocks_per_sm resident blocks, ⌈pairs / target⌉
-    class tiles (at least one), so the split blocks fill the card about once:
-    at most target + n_btiles − 1 of them, and every class tile of its own
+    ``n_tiles`` class tiles on ``units`` units that hold ``per_unit`` workers
+    each: SMs and blocks an SM, or clusters that the card holds at once and
+    1.  Each (batch tile, split) worker takes the even share of the card's
+    target = units × per_unit resident workers, ⌈pairs / target⌉ class
+    tiles (at least one), so the split workers fill the card about once: at
+    most target + n_btiles − 1 of them, and every class tile of its own
     where the tile pairs number no more than the target."""
-    target = sms * blocks_per_sm
+    target = units * per_unit
     tiles_per_split = max(1, -(-n_tiles * n_btiles // target))
     return tiles_per_split, -(-n_tiles // tiles_per_split)
 
@@ -276,7 +278,7 @@ def _bwd_kernel():
     return fn, lib.flash_aam_bwd_block_rows(), lib.flash_aam_bwd_block_classes()
 
 
-_BWD_ROUTES = ("tiles", "wide", "chunks")
+_BWD_ROUTES = ("tiles", "wide", "chunks", "cluster")
 
 
 def _bwd_query(name: str, D: int) -> int:
@@ -289,20 +291,27 @@ def _bwd_query(name: str, D: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _bwd_route(D: int) -> str:
     """The backward kernel's route for depth D, as its library picks it:
-    ``tiles`` (D ≤ 256), ``wide`` (to 512) or ``chunks``."""
+    ``tiles`` (D ≤ 256), ``wide`` (to 512), ``cluster`` (to 2048) or
+    ``chunks``."""
     return _BWD_ROUTES[_bwd_query("flash_aam_bwd_route", D)]
 
 
 @functools.lru_cache(maxsize=None)
+def _bwd_occupancy(index: int, D: int, query: str) -> int:
+    """The library's occupancy ``query`` for depth D on card ``index``:
+    blocks of the route an SM (``flash_aam_bwd_blocks_per_sm``) or clusters
+    of the cluster route on the card (``flash_aam_bwd_clusters``)."""
+    with torch.cuda.device(index):
+        n = _bwd_query(query, D)
+    if n < 1:
+        raise RuntimeError(f"flash_aam_bwd: {query} gave {n} at D = {D}")
+    return n
+
+
 def _bwd_blocks_per_sm(index: int, D: int) -> int:
     """Blocks of the backward's route for depth D that one SM of card
-    ``index`` holds at once, from the library's occupancy query."""
-    with torch.cuda.device(index):
-        n = _bwd_query("flash_aam_bwd_blocks_per_sm", D)
-    if n < 1:
-        raise RuntimeError(f"flash_aam_bwd: no block fits an SM at D = {D} "
-                           f"(occupancy query gave {n})")
-    return n
+    ``index`` holds at once."""
+    return _bwd_occupancy(index, D, "flash_aam_bwd_blocks_per_sm")
 
 
 def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
@@ -313,8 +322,12 @@ def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
     e_hat, weight, lse, g = (t.contiguous() for t in (e_hat, weight, lse, g))
     labels = labels.to(torch.int32).contiguous()
     index = _device_index(dev)
-    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), _sm_count(index),
-                                          _bwd_blocks_per_sm(index, D))
+    route = _bwd_route(D)
+    if route == "cluster":  # each de worker is a cluster: split by the resident ones
+        units, per_unit = _bwd_occupancy(index, D, "flash_aam_bwd_clusters"), 1
+    else:
+        units, per_unit = _sm_count(index), _bwd_blocks_per_sm(index, D)
+    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), units, per_unit)
     part = torch.empty((n_splits, B, D), dtype=torch.float32, device=dev)
     de = torch.empty((B, D), dtype=torch.float32, device=dev)
     dw = torch.empty((C, D), dtype=torch.float32, device=dev)
@@ -327,7 +340,7 @@ def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
     if err != 0:
         raise RuntimeError(f"flash_aam_bwd kernel launch failed: cudaError {err}")
     flash_aam_bwd.launches += 1
-    flash_aam_bwd.route_launches[_bwd_route(D)] += 1
+    flash_aam_bwd.route_launches[route] += 1
     return de, dw
 
 

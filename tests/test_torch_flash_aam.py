@@ -231,6 +231,53 @@ def test_split_rule_covers_every_class_tile_once(n_tiles, n_btiles, sms, blocks_
         assert -(-pairs // tps) <= fill < target + n_btiles
 
 
+# the parent's (tiles per split, splits) of SPLIT_CASES, before the
+# backward's cluster route: the block routes keep them
+BLOCK_ROUTE_SPLITS = {
+    (229, 8, 132, 2): (7, 33), (229, 8, 132, 1): (14, 17), (229, 32, 132, 2): (28, 9),
+    (229, 4, 132, 2): (4, 58), (4096, 8, 132, 2): (125, 33), (219, 4, 132, 1): (7, 32),
+    (219, 4, 132, 2): (4, 55), (2, 1, 132, 2): (1, 2), (1, 1, 132, 1): (1, 1),
+    (5, 1, 2, 2): (2, 3), (101, 1, 100, 1): (2, 51), (63, 2, 8, 3): (6, 11),
+    (1000, 3, 7, 1): (429, 3)}
+
+
+def test_split_rule_of_the_block_routes_is_unchanged():
+    """The forward and the backward's tiles, wide and chunked routes split
+    by resident blocks (SMs × blocks an SM) and give the same numbers as
+    before the cluster route."""
+    assert set(BLOCK_ROUTE_SPLITS) == set(SPLIT_CASES)
+    for case, want in BLOCK_ROUTE_SPLITS.items():
+        assert port_flash._n_splits(*case) == want, case
+
+
+# (class tiles, batch tiles, clusters the card holds at once): the
+# backward's cluster route on an H100 (two blocks an SM: 62 clusters of 4 at
+# D = 1024, 30 of 8 at 2048, 79 of 3 at 513), then small and ragged cards
+CLUSTER_SPLIT_CASES = [(219, 4, 62), (229, 8, 62), (229, 8, 30), (219, 2, 79), (229, 1, 62),
+                       (1, 1, 62), (5, 3, 2), (63, 2, 1), (1000, 3, 7)]
+
+
+@pytest.mark.parametrize("n_tiles,n_btiles,clusters", CLUSTER_SPLIT_CASES)
+def test_split_rule_by_clusters_covers_every_class_tile_once(n_tiles, n_btiles, clusters):
+    """On the backward's cluster route every (batch tile, split) worker is
+    a cluster of blocks, so the target is the clusters that the card holds
+    at once (_n_splits(n_tiles, n_btiles, clusters, 1)): every class tile
+    lies in exactly one split, none is empty, and the clusters reach the
+    target's fill as the block routes' blocks reach theirs."""
+    tps, n_splits = port_flash._n_splits(n_tiles, n_btiles, clusters, 1)
+    pairs = n_tiles * n_btiles
+    owned = [t for split in range(n_splits)
+             for t in range(split * tps, min(split * tps + tps, n_tiles))]
+    assert sorted(owned) == list(range(n_tiles))
+    assert (n_splits - 1) * tps < n_tiles
+    fill = n_btiles * n_splits
+    if pairs <= clusters:
+        assert tps == 1 and fill == pairs
+    else:
+        assert (tps - 1) * clusters < pairs <= tps * clusters
+        assert -(-pairs // tps) <= fill < clusters + n_btiles
+
+
 def test_bwd_wrapper_checks_inputs():
     emb, w, labels = make()
     e_hat, _ = port_flash._normalize(torch.from_numpy(emb))

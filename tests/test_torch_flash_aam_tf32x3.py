@@ -28,6 +28,10 @@ D = 512 the backward takes its wide route (flash_aam_bwd.cu:
 bwd_wide_kernel), which forms the same cosines but sums dW's projection
 dŵ·ŵ over the whole depth in one pass, in its warps' order (row_dot_wide);
 the backward test holds that model to the Pallas kernel at D = 300 and 512.
+From 512 to 2048 it takes its cluster route (bwd_cluster_kernel), whose
+blocks each hold a 256-wide slice of the depth: the same cosines, and dW's
+projection summed per slice in its warps' order, then over the slices in
+slice order (row_dot_sliced), held to the Pallas kernel at D = 777 and 1024.
 """
 
 import numpy as np
@@ -94,7 +98,9 @@ def mm_chunked(depth: int):
 
 
 DEEP_CASES = {"D300": (make(B=24, D=300, C=200, seed=12), 128),
-              "D512": (make(B=24, D=512, C=300, seed=13), 256)}
+              "D512": (make(B=24, D=512, C=300, seed=13), 256),
+              "D1024": (make(B=24, D=1024, C=200, seed=14), 128),
+              "D777": (make(B=24, D=777, C=200, seed=15), 128)}
 
 
 def row_dot_wide(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -118,6 +124,37 @@ def row_dot_wide(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     total = torch.zeros(C, dtype=torch.float32)
     for w in range(8):
         total = total + warp[:, w]
+    return total[:, None]
+
+
+SW = 256  # the depth of a block's slice on the cluster route (flash_aam_cosine.cuh)
+
+
+def row_dot_sliced(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Σ_d x·y of each row, kept as a column, in the order in which
+    bwd_cluster_kernel sums dW's projection (512 < D ≤ 2048, zeros to a
+    multiple of 256): depth d = 256·s + 32·w + 8·j + 2·t + q lies with lane t
+    of a class's four in warp w of the cluster's block s; each lane adds its
+    products in the order j, q, one rounding each (fmaf; modelled in f64,
+    then rounded to f32), the four lanes add as (t0 + t1) + (t2 + t3), the
+    warps' sums add from 0 in warp order, and the slices' sums add in slice
+    order."""
+    C, D = x.shape
+    assert 512 < D <= 2048
+    n_s = -(-D // SW)
+    prod = torch.nn.functional.pad(x.double() * y.double(), (0, n_s * SW - D))
+    prod = prod.reshape(C, n_s, 8, 4, 4, 2)  # (class, slice, w, j, t, q)
+    lane = torch.zeros((C, n_s, 8, 4), dtype=torch.float32)
+    for j in range(4):
+        for q in range(2):
+            lane = (lane.double() + prod[:, :, :, j, :, q]).float()
+    warp = (lane[..., 0] + lane[..., 1]) + (lane[..., 2] + lane[..., 3])
+    per_slice = torch.zeros((C, n_s), dtype=torch.float32)
+    for w in range(8):
+        per_slice = per_slice + warp[:, :, w]
+    total = per_slice[:, 0]
+    for sl in range(1, n_s):
+        total = total + per_slice[:, sl]
     return total[:, None]
 
 
@@ -252,13 +289,16 @@ def test_tf32x3_bwd_matches_pallas_bwd(name, monkeypatch):
     3×TF32 against the Pallas backward kernel (interpret mode), every row
     within 1e-3 of its own norm but those of examples at the sin clip
     (_off_the_clip), which only the margin and saturated cases have.  The
-    deep cases (D = 300, 512) model the wide route: the chunked cosine
-    (mm_chunked) and dW's projection in its order (row_dot_wide)."""
+    deep cases model the backward's route for their depth: the chunked
+    cosine (mm_chunked) and dW's projection in the route's order, the wide
+    route's (row_dot_wide) at D = 300 and 512, the cluster route's
+    (row_dot_sliced) at D = 777 and 1024."""
     (emb, w, labels), tile = {**CASES, **DEEP_CASES}[name]
     mm = mm_tf32x3
     if name in DEEP_CASES:
-        mm = mm_chunked(emb.shape[1])
-        monkeypatch.setattr(port_flash, "_row_dot", row_dot_wide)
+        D = emb.shape[1]
+        mm = mm_chunked(D)
+        monkeypatch.setattr(port_flash, "_row_dot", row_dot_wide if D <= 512 else row_dot_sliced)
     lse, g, ref = _pallas(emb, w, labels, tile)
     got = _port_bwd(emb, w, labels, lse, g, tile, mm, monkeypatch)
     rows, classes = _off_the_clip(emb, w, labels)

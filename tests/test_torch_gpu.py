@@ -20,10 +20,11 @@ there.  Two calls of either kernel on the same inputs give the same bits.
 The two kernels form the same cosine bits: with one class, the backward's
 gradients from the forward's own lse are exactly 0, at D <= 256 and at
 D > 256, where the forward streams the depth in 128-deep chunks and the
-backward keeps them resident up to D = 512 (its wide route) and streams
-them beyond (D = 300, 301, 512 and 1024 are held to the plain version in
-both directions; D = 301 takes the 4-byte copies).  Each backward route
-holds as many blocks on an SM as its shared memory allows.  The flash gradients
+backward keeps them resident up to D = 512 (its wide route), splits them
+over a thread-block cluster up to 2048 (its cluster route) and streams them
+beyond (D = 300, 301, 512, 777, 1024, 2048 and 2304 are held to the plain
+version in both directions; D = 301 and 777 take the 4-byte copies).  Each
+backward route holds as many blocks on an SM as its shared memory allows.  The flash gradients
 against the dense head's autograd (cuBLAS f32) at rtol 2e-3, atol 1e-6 as
 tests/test_flash_aam.py, and row by row within 1e-3.  Labels outside
 [0, C), the shard-local labels of a class-sharded head, give no target
@@ -95,7 +96,8 @@ def test_flash_aam_fwd_is_deterministic():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("B,D", [(256, 256), (100, 37), (256, 512), (100, 300), (100, 301)])
+@pytest.mark.parametrize("B,D", [(256, 256), (100, 37), (256, 512), (100, 300), (100, 301),
+                                 (100, 1024)])
 def test_fwd_and_bwd_cosines_agree_bit_for_bit(B, D, exact):
     """With one class and every label 0, the forward's lse is its zy, so the
     backward's p = exp(z − lse) is exactly 1 and its gradients exactly 0
@@ -217,13 +219,18 @@ def test_flash_aam_off_shard_labels_match_plain(B, C, D, how):
         assert float((gt - r).abs().max()) <= 1e-3 * float(r.abs().max()) + 1e-6
 
 
+def _route(D):
+    return "wide" if D <= 512 else "cluster" if D <= 2048 else "chunks"
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [300, 301, 512, 1024])
+@pytest.mark.parametrize("D", [300, 301, 512, 777, 1024, 2048, 2304])
 def test_flash_aam_deep_rows_match_plain(D):
     """D > 256 (the forward's chunked path; the backward's wide route up to
-    512 and its chunked route beyond) against the plain versions at the bars
-    above, forward and backward."""
-    route = "wide" if D <= 512 else "chunks"
+    512, its cluster route to 2048 (D = 777 takes the 4-byte copies and a
+    ragged last slice, 2048 a cluster of 8) and its chunked route beyond)
+    against the plain versions at the bars above, forward and backward."""
+    route = _route(D)
     before = flash_aam.flash_aam_bwd.route_launches[route]
     test_flash_aam_fwd_matches_plain(100, 2001, D)
     test_flash_aam_bwd_matches_plain(100, 2001, D, False)
@@ -232,16 +239,29 @@ def test_flash_aam_deep_rows_match_plain(D):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,blocks", [(37, 2), (256, 2), (257, 1), (301, 1), (512, 1),
-                                      (513, 2), (1024, 2)])
+                                      (513, 2), (1024, 2), (2048, 2), (2049, 2)])
 def test_flash_aam_bwd_blocks_per_sm_by_route(D, blocks):
-    """The occupancy the split rule reads: two blocks an SM for the tiles
-    and chunked routes, one for the wide route (256 < D <= 512)."""
+    """The occupancy the split rule reads: two blocks an SM for the tiles,
+    cluster (512 < D <= 2048) and chunked routes, one for the wide route
+    (256 < D <= 512).  The cluster route also reports its cluster size,
+    ceil(D / 256), and how many clusters the card holds at once: at least
+    one, and no more blocks than its SMs hold."""
     dev = _card()
-    assert flash_aam._bwd_blocks_per_sm(dev.index or 0, D) == blocks
+    index = dev.index or 0
+    assert flash_aam._bwd_blocks_per_sm(index, D) == blocks
+    size = flash_aam._bwd_query("flash_aam_bwd_cluster_size", D)
+    if 512 < D <= 2048:
+        assert size == -(-D // 256)
+        clusters = flash_aam._bwd_occupancy(index, D, "flash_aam_bwd_clusters")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        assert 1 <= clusters and clusters * size <= blocks * sms
+    else:
+        assert size == 1
+        assert flash_aam._bwd_query("flash_aam_bwd_clusters", D) == -1
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [256, 300, 301, 512])
+@pytest.mark.parametrize("D", [256, 300, 301, 512, 777, 1024, 2048])
 def test_flash_aam_bwd_is_deterministic(D):
     dev = _card()
     args = _bwd_case(dev, 256, 7325, D)
