@@ -5,19 +5,26 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --fwd-times ROOT` instead times the forward kernel
+alone at its deep shapes, from the pkr_tpu_torch of the checkout at ROOT:
+run in turns on two checkouts in one call, it compares them on one card.)
+
 Phases, one JSON line each:
   env     the card's name, count and power limit (nvidia-smi);
   build   nvcc builds every kernel of the paths from csrc/, one nvcc per
           source, all at once (seconds, ptxas registers, shared memory and
           spills, and the tensor-core HMMA instructions cuobjdump finds in
           each: both kernels run on the tensor cores, so neither may have
-          none; the backward's wide and cluster routes may not spill);
+          none; the backward's wide and cluster routes and the forward's
+          cluster route may not spill);
   kernel  each kernel against its plain PyTorch version on the card, at the
           shapes of the paths and beyond: D = 256; the deep D = 512, 300 and
-          301 (4-byte copies), which the backward takes through its wide
-          route; D = 1024, 777 (4-byte copies, a ragged last slice) and
-          2048 (a cluster of 8), its cluster route; and D = 2304, its
-          chunked route (a gradient row by row, each row within 1e-3 of its
+          301 (4-byte copies), which the forward takes through its cluster
+          route and the backward through its wide route; D = 1024, 777
+          (4-byte copies, a ragged last slice) and 2048 (a cluster of 8),
+          the cluster route of both; and D = 2304, the chunked route of
+          both (the forward twice for the same bits at every deep D; a
+          gradient row by row, each row within 1e-3 of its
           own norm, with planted faults the check must reject; the backward
           also with every target p ≈ 0.993 against the plain version in
           f64 at D = 256, 512 and 1024, at D = 37, with labels off the shard
@@ -27,9 +34,10 @@ Phases, one JSON line each:
           cores; 3×TF32 tensor cores); then the two kernels against each
           other: with one class the backward's gradients are exactly 0 iff
           both formed the same cosine bits (check_consistency, D = 256, 37,
-          512, 300, 301, 1024 and 777); and one flash and one dense
+          512, 300, 301, 1024, 777 and 2048); and one flash and one dense
           ResNet-34 train step of a 512-wide and of a 1024-wide embedding
-          agree, every backward launch of each path on its route (wide,
+          agree, every forward launch of each path on the forward's
+          cluster route and every backward launch on its route (wide,
           cluster), with both steps' ms and the flash step's device ms and
           kernel share; the phase within 150 s;
   slice   the serving path at full width — 128 six-second utterances through
@@ -141,7 +149,7 @@ Phases, one JSON line each:
           dryrun_multichip(2); the phase within 150 s;
   kernels every kernel with its launches on the paths and its errors (the
           backward's also with a `deep` record of its times at 256 × 7325 ×
-          512), and the backward's cluster route on its own row (timed at
+          512), and the cluster route of each on its own row (each timed at
           100 × 7001 × 1024, with a `deep` record at 256 × 7325 × 1024).
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
@@ -251,6 +259,13 @@ def device_ms(torch, fn, iters, only=None):
     return sum(by_name.values()), n / iters, [[k[:80], v] for k, v in top]
 
 
+def profiled_calls(tag, iters):
+    """Calls to trace for a timed row: the plain version launches ~174
+    kernels a call, whose trace takes seconds to read back, and is timed
+    only for reference, so at most 10 of its calls; the others all."""
+    return min(iters, 10) if tag == "plain" else iters
+
+
 def _bounds(flops, nbytes):
     """(bound ms, what bounds it) on the f32 CUDA cores, and the bound ms of
     the same products in 3×TF32 on the tensor cores (three TF32 operations
@@ -335,9 +350,13 @@ def phase_build():
         check(hmma > 0, f"the {name} library has no HMMA instruction")
     # the backward's route for 256 < D <= 512 holds a 32 x 512 accumulator a
     # block in registers, its cluster route (512 < D <= 2048) a 32 x 256
-    # slice in the 128 registers of two blocks an SM: neither may spill
-    ptxas = _native.BUILD_INFO["flash_aam_bwd"]["ptxas"]
-    for kernel in ("bwd_wide_kernel", "bwd_cluster_kernel"):
+    # slice in the 128 registers of two blocks an SM, and the forward's
+    # cluster route (256 < D <= 2048) runs two blocks an SM too: none may
+    # spill
+    for lib, kernel in (("flash_aam_bwd", "bwd_wide_kernel"),
+                        ("flash_aam_bwd", "bwd_cluster_kernel"),
+                        ("flash_aam_fwd", "fwd_cluster_kernel")):
+        ptxas = _native.BUILD_INFO[lib]["ptxas"]
         found = {k: v for k, v in ptxas.items() if kernel in k}
         check(len(found) == 2, f"ptxas reported {len(found)} {kernel} instantiations, not 2")
         for k, v in found.items():
@@ -395,10 +414,15 @@ def _rank_gaps(torch, emb, w, labels, rows, k):
     return (tgt - kth).abs()
 
 
-FWD_KERNELS = ("fwd_tiles_kernel", "fwd_chunks_kernel", "merge_kernel")
+FWD_KERNELS = ("fwd_tiles_kernel", "fwd_cluster_kernel", "fwd_chunks_kernel", "merge_kernel")
 
 
-def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
+def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True, repeat=False):
+    """flash_aam_fwd against flash_aam_fwd_plain: lse and zy within 5e-4,
+    the loss within 2e-4, top-1 and top-5 equal but on rows whose rank gap
+    is under 1e-4; `repeat` also checks that a second call gives the same
+    bits.  `timed` adds the kernel's, the plain version's and the dense
+    library yardstick's times, with both bounds."""
     from pkr_tpu_torch.ops import flash_aam as fa
 
     emb, w, labels = _flash_inputs(torch, B, C, D, seed, saturated)
@@ -418,6 +442,10 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
            "loss": loss_got, "loss_plain": loss_ref, "n1": n1, "n5": n5,
            "tol": {"lse_zy": 5e-4, "loss": 2e-4, "topk_gap": 1e-4}}
     check(np.isfinite([err_lse, err_zy, loss_got]).all(), f"{name}: non-finite output")
+    if repeat:
+        again = fa.flash_aam_fwd(e_hat, w, labels, zt)
+        row["same_bits_twice"] = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        check(row["same_bits_twice"], f"{name}: two calls gave different bits")
     check(err_lse <= 5e-4 and err_zy <= 5e-4, f"{name}: lse/zy error {err_lse}, {err_zy}")
     check(abs(loss_got - loss_ref) <= 2e-4, f"{name}: loss {loss_got} vs {loss_ref}")
     for tag, k, a, b in (("top1", 1, got[1] >= got[2], ref[1] >= ref[2]),
@@ -442,7 +470,7 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True):
                      ("library", dense, None))
         for tag, fn, only in timed_fns:
             row[f"{tag}_ms"], row[f"{tag}_device_kernels_per_call"], top = device_ms(
-                torch, fn, iters, only)
+                torch, fn, profiled_calls(tag, iters), only)
             row[f"{tag}_call_ms"] = call_ms(torch, fn, iters)
             if tag == "kernel":  # the tile kernel and the merge, ms each per call
                 row["kernel_ms_by_launch"] = top
@@ -570,7 +598,7 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
                 ("plain", lambda: fa.flash_aam_bwd_plain(e_hat, w, labels, lse, g), None),
                 ("library", dense_bwd, None)):
             row[f"{tag}_ms"], row[f"{tag}_device_kernels_per_call"], _ = device_ms(
-                torch, fn, iters, only)
+                torch, fn, profiled_calls(tag, iters), only)
             row[f"{tag}_call_ms"] = call_ms(torch, fn, iters)
         check(row["kernel_ms"] is not None, f"{name}: the trace shows no kernel time")
         row["bound_ms"], row["bound_by"], row["bound_tc_ms"] = flash_bwd_bound(B, C, D)
@@ -726,15 +754,21 @@ KERNEL_BUDGET_S = 150.0
 
 def phase_kernel(torch, smi_line):
     t0 = time.perf_counter()
-    # D > 256 (the chunked path of the forward; the backward's wide route up
-    # to 512, its cluster route to 2048 and its chunked route beyond): the
-    # 512-wide embedding at the train batch, a ragged 100 x 7001 x 300, and
-    # D = 301, whose rows take 4-byte copies
+    # D > 256 (the forward's cluster route to 2048 and its chunked route
+    # beyond; the backward's wide route up to 512, its cluster route to 2048
+    # and its chunked route beyond): the 512-wide embedding at the train
+    # batch, a ragged 100 x 7001 x 300, and D = 301, whose rows take 4-byte
+    # copies; 4-byte copies and a ragged last slice at 777, the 1024-wide
+    # embedding, a cluster of 8 at 2048, and beyond it the chunked route,
+    # timed against the library; every deep case twice for the same bits
     cases = [("slice_eval", BATCH, SPK, 256, True), ("path_b256", 256, SPK, 256, True),
              ("path_b1024", 1024, SPK, 256, True), ("scale_c131072", 256, 131072, 256, True),
              ("ragged", 100, 7001, 256, False), ("path_b256_d512", 256, SPK, 512, True),
-             ("ragged_d300", 100, 7001, 300, True), ("ragged_d301", 100, 7001, 301, False)]
-    rows = [check_flash_case(torch, name, B, C, D, seed=i, timed=timed)
+             ("ragged_d300", 100, 7001, 300, True), ("ragged_d301", 100, 7001, 301, False),
+             ("ragged_d777", 100, 7001, 777, False), ("ragged_d1024", 100, 7001, 1024, True),
+             ("train_b256_d1024", TRAIN_B, SPK, 1024, True), ("b64_d2048", 64, 7001, 2048, False),
+             ("ragged_d2304", 100, 7001, 2304, True)]
+    rows = [check_flash_case(torch, name, B, C, D, seed=i, timed=timed, repeat=D > 256)
             for i, (name, B, C, D, timed) in enumerate(cases)]
     rows.append(check_flash_case(torch, "saturated", 4, 300, 256, seed=9, saturated=True,
                                  timed=False))
@@ -766,7 +800,7 @@ def phase_kernel(torch, smi_line):
     check_offshard_case(torch, "ragged_d300", 100, 7001, 300, 53, "minus_c")
     check_offshard_case(torch, "ragged_d1024", 100, 7001, 1024, 54, "mixed")
     for i, (B, D) in enumerate(((256, 256), (100, 37), (256, 512), (100, 300), (100, 301),
-                                (100, 1024), (100, 777))):
+                                (100, 1024), (100, 777), (64, 2048))):
         for exact in (True, False):
             check_consistency(torch, B, D, seed=40 + i, exact=exact)
     wide_launches = {D: check_wide_train(torch, smi_line, D) for D in (512, 1024)}
@@ -781,11 +815,11 @@ WIDE_B = 128
 
 
 def check_wide_train(torch, smi_line, D):
-    """A D-wide embedding (SpeakerModel(emb_dim=D); the forward's chunked
-    kernel, and the backward's wide route at D = 512, its cluster route at
+    """A D-wide embedding (SpeakerModel(emb_dim=D); the forward's cluster
+    route at both, the backward's wide route at D = 512, its cluster route at
     1024): one flash step and one dense step from the same weights agree
-    (flash_dense_agree), and every backward launch of the path takes that
-    route; then both steps' ms (_median_step_ms) and the flash step's
+    (flash_dense_agree), and every launch of each kernel on the path takes
+    that route; then both steps' ms (_median_step_ms) and the flash step's
     device ms with its kernels' share."""
     from pkr_tpu_torch.models import SpeakerModel
     from pkr_tpu_torch.ops import flash_aam as fa
@@ -805,6 +839,7 @@ def check_wide_train(torch, smi_line, D):
     route = "wide" if D <= 512 else "cluster"
     # --- the D-wide path, with the kernel counts at 0 just before it ---
     fa.flash_aam_fwd.launches = 0
+    fa.flash_aam_fwd.route_launches = dict.fromkeys(fa.flash_aam_fwd.route_launches, 0)
     fa.flash_aam_bwd.launches = 0
     fa.flash_aam_bwd.route_launches = dict.fromkeys(fa.flash_aam_bwd.route_launches, 0)
     agree = flash_dense_agree(torch, model, init, steps["flash"], steps["dense"], x, y, lr)
@@ -817,10 +852,14 @@ def check_wide_train(torch, smi_line, D):
                       "examples_per_s": WIDE_B * 1e3 / ms}
     torch.cuda.synchronize()
     launches = {"flash_aam_fwd": fa.flash_aam_fwd.launches,
+                "flash_aam_fwd_routes": dict(fa.flash_aam_fwd.route_launches),
                 "flash_aam_bwd": fa.flash_aam_bwd.launches,
                 "flash_aam_bwd_routes": dict(fa.flash_aam_bwd.route_launches)}
     # --- end of the D-wide path ---
-    check(launches["flash_aam_fwd"] > 0 and launches["flash_aam_bwd_routes"][route] > 0 and
+    check(launches["flash_aam_fwd_routes"]["cluster"] > 0 and
+          launches["flash_aam_fwd"] == launches["flash_aam_fwd_routes"]["cluster"],
+          f"the {D}-wide train path did not run the forward's cluster route alone: {launches}")
+    check(launches["flash_aam_bwd_routes"][route] > 0 and
           launches["flash_aam_bwd"] == launches["flash_aam_bwd_routes"][route],
           f"the {D}-wide train path did not run the backward's {route} route alone: {launches}")
     model.load_state_dict(init)
@@ -2761,6 +2800,24 @@ def phase_parallel(torch, smi_line, cfg=PAR):
     return launches
 
 
+# the forward's deep shapes that PERF.md tracks, timed by --fwd-times
+FWD_TIMED = (("b256_d512", TRAIN_B, SPK, 512), ("ragged_d300", 100, 7001, 300),
+             ("ragged_d1024", 100, 7001, 1024), ("b256_d1024", TRAIN_B, SPK, 1024))
+
+
+def fwd_times(torch, smi_line, root):
+    """The forward alone at FWD_TIMED, held against its plain version and
+    timed (check_flash_case), from the pkr_tpu_torch of the checkout at
+    `root`: `python3 chip_smoke.py --fwd-times ROOT`, run in turns on two
+    checkouts in one call, compares their kernels on one card."""
+    for i, (name, B, C, D) in enumerate(FWD_TIMED):
+        row = check_flash_case(torch, f"fwd_times_{name}", B, C, D, seed=60 + i)
+        emit({"fwd_times": name, "root": root, "card": smi_line, "kernel_ms": row["kernel_ms"],
+              "kernel_call_ms": row["kernel_call_ms"],
+              "kernel_ms_by_launch": row["kernel_ms_by_launch"],
+              "library_ms": row["library_ms"], "bound_ms": row["bound_ms"]})
+
+
 def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys, deep_row=None):
     """One kernel's record for the kernels line, timed at main_row's shape;
     `deep_row` adds a `deep` record of the same times at its shape."""
@@ -2791,13 +2848,27 @@ def main():
         print("chip_smoke: no CUDA device; this script runs the port on an NVIDIA "
               "card and never falls back to the CPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    args = sys.argv[1:]
+    timing_root = None
+    if args:
+        if args[0] != "--fwd-times" or len(args) > 2:
+            print("usage: chip_smoke.py [--fwd-times [ROOT]]", file=sys.stderr)
+            return 2
+        timing_root = os.path.abspath(args[1] if len(args) > 1 else ROOT)
+    sys.path.insert(0, timing_root or ROOT)
     try:
         import pkr_tpu_torch  # noqa: F401
     except ImportError as exc:
         print(f"chip_smoke: run it from a checkout of the repository ({exc})",
               file=sys.stderr)
         return 1
+    if timing_root is not None:
+        try:
+            fwd_times(torch, phase_env(torch), timing_root)
+        except SmokeFailure as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            return 1
+        return 0
     try:
         smi_line = phase_env(torch)
         phase_build()
@@ -2837,6 +2908,16 @@ def main():
                        "parallel": parallel_launches["flash_aam_bwd"]},
                       bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"),
                       deep_row=next(r for r in bwd_rows if r["case"] == "train_b256_d512")),
+        # the forward's cluster route (256 < D <= 2048), timed at 100 x
+        # 7001 x 1024 and launched on the 512- and 1024-wide train paths
+        _kernel_entry("fwd_cluster_kernel", "pkr_tpu_torch/csrc/flash_aam_fwd.cu",
+                      "pkr_tpu/ops/flash_aam.py:53",
+                      {f"train_d{D}": wide_launches[D]["flash_aam_fwd_routes"]["cluster"]
+                       for D in (512, 1024)},
+                      [r for r in rows if 256 < r["D"] <= 2048],
+                      next(r for r in rows if r["case"] == "ragged_d1024"),
+                      ("max_abs_err_lse", "max_abs_err_zy"),
+                      deep_row=next(r for r in rows if r["case"] == "train_b256_d1024")),
         # the backward's cluster route (512 < D <= 2048), timed at 100 x
         # 7001 x 1024 and launched on the 1024-wide train path
         _kernel_entry("bwd_cluster_kernel", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",

@@ -1146,24 +1146,6 @@ cudaError_t route(int D, const void** kernel, size_t* smem) {
                               (int)*smem);
 }
 
-// The cluster route's launch configuration for `clusters` clusters of
-// n_slices(D) blocks; attr must outlive its use.
-inline cudaLaunchConfig_t cluster_config(int D, int clusters, size_t smem, cudaStream_t st,
-                                         cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = n_slices(D);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * n_slices(D));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 template <int VEC>
 cudaError_t launch(const float* e, const float* w, const int* labels, const float* lse,
                    const float* g, int B, int C, int D, int tiles_per_split, int n_splits,

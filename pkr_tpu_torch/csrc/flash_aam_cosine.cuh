@@ -11,20 +11,21 @@
 // batch and the classes by TB and TC from offsets that are multiples of
 // them, so (b, c) always lands on the same warp, lane and register.
 //
-// Deeper rows (D > DMAX) do not fit the resident tiles.  chunked_cosine then
-// streams the depth in n_chunks(D) chunks of KC, the last one padded with
-// zeros, and both kernels call it on the same tiles:
+// Deeper rows (D > DMAX) do not fit the resident tiles.  Their cosines are
+// chunked_cosine's, which streams the depth in n_chunks(D) chunks of KC, the
+// last one padded with zeros:
 //   e . w   = the chunks' cosine_dots, added with __fadd_rn in chunk order,
 //   1/||w|| = __frsqrt_rn(max(sum w^2, 1e-24)), sum w^2 the chunks' tile_sq
 //             added in the same order.
-// Up to WMAX deep, the backward keeps every chunk of its tiles resident
-// instead (stage_chunks, resident_rnorms, resident_cosine) and forms the
-// same bits from them.  Up to CMAX deep, a thread-block cluster of
-// n_slices(D) blocks splits the depth into SW-wide slices of two chunks each
-// (stage_slice): every block publishes its chunks' cosine_dots and tile_sq
-// unsummed (slice_partials, slice_sq) and adds all the cluster's in chunk
-// order through distributed shared memory (cluster_dot, cluster_rnorms), so
-// every block of the cluster holds the same bits, chunked_cosine's.
+// Both kernels call it beyond CMAX.  Up to WMAX deep, the backward keeps
+// every chunk of its tiles resident instead (stage_chunks, resident_rnorms,
+// resident_cosine) and forms the same bits from them.  Up to CMAX deep, both
+// kernels split the depth over a thread-block cluster of n_slices(D)
+// blocks, SW-wide slices of two chunks each (stage_slice): every block
+// publishes its chunks' cosine_dots and tile_sq unsummed (slice_partials,
+// slice_sq), and a block that needs the cosine tile adds all the cluster's
+// in chunk order through distributed shared memory (cluster_dot,
+// cluster_rnorms), which gives chunked_cosine's bits.
 #pragma once
 
 #include "flash_aam_common.cuh"
@@ -202,6 +203,24 @@ constexpr int SW = 2 * KC;    // the depth of one block's slice
 constexpr int CMAX = 8 * SW;  // the portable cluster size (8) times SW
 
 __host__ __device__ inline int n_slices(int D) { return (D + SW - 1) / SW; }
+
+// The launch configuration of `clusters` clusters of n_slices(D) blocks,
+// consecutive in x; attr must outlive its use.
+inline cudaLaunchConfig_t cluster_config(int D, int clusters, size_t smem, cudaStream_t st,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n_slices(D);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * n_slices(D));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
 
 // The split barrier of the whole cluster: every thread of every block
 // arrives (its shared memory writes released to the cluster), then waits

@@ -45,14 +45,50 @@
 // merge_kernel then merges the splits in a fixed order, without atomics, so
 // two calls give the same bits.
 //
-// Depth.  For D <= DMAX (256), the rows are padded to padded_depth(D) in
-// shared memory with zeros and the e tile stays resident.  Deeper rows take
-// fwd_chunks_kernel: the same blocks and epilogue, with each class tile's
-// cosines and norms streamed in 128-deep chunks of e and W through
-// chunked_cosine (flash_aam_cosine.cuh), which the backward calls on the same
-// tiles, so the bits still agree.  Rows of e and W whose length is a
-// multiple of 4 are staged with 16-byte cp.async copies; other D take 4-byte
-// copies (VEC = 1).
+// Three routes by depth, one launch each and then merge_kernel (launch):
+//   D <= DMAX (256): fwd_tiles_kernel, above.  The rows are padded to
+//     padded_depth(D) in shared memory with zeros.
+//   DMAX < D <= CMAX (2048): fwd_cluster_kernel.  Whole-depth e and W
+//     tiles no longer fit two blocks an SM, and streaming both through
+//     chunked_cosine
+//     re-stages the e chunks for every class tile and meets at a block-wide
+//     barrier every 128-deep chunk.  So a thread-block cluster of n_s =
+//     n_slices(D) blocks (at most 8, the portable size) takes one (batch
+//     tile, split) and splits the depth into SW = 256-wide slices, as the
+//     backward's cluster route does (flash_aam_bwd.cu: de_cluster_block).
+//     Block `slice` stages its slice of the e tile once, split into its
+//     TF32 parts in the order in which the MMAs read them, and streams its
+//     slice of the split's W tiles through one buffer: tile t + 1's copy
+//     starts as soon as every warp has read tile t, and is in flight
+//     through the cluster barrier and the fold.  For each tile every block
+//     forms its two chunks' cosine partials (each warp one 16 x 16 quadrant
+//     of one chunk, cosine_dots' sum) and their sums of squares and
+//     publishes them unsummed; after one cluster barrier the tile's owner,
+//     block (t - tile_lo) % n_s, adds all n_chunks(D) of them in chunk order
+//     through distributed shared memory (cluster_dot, cluster_rnorms:
+//     chunked_cosine's bits, the backward's) and folds the tile.  So no e
+//     chunk is staged twice, the block meets its peers once a tile, the
+//     norms come from the published sums of squares, and each tile is
+//     folded once, not n_s times.  Every block writes its own partial state
+//     (an owner of no tile writes the empty one), and merge_kernel merges
+//     the n_splits * n_s of them in order.  The published buffers alternate
+//     between tiles, so one barrier a tile suffices: a block rewrites a
+//     buffer only past the barrier that the tile's owner reaches after
+//     reading it; every block ends at a cluster barrier, so none leaves
+//     while a peer may read its shared memory.  One W buffer keeps a block
+//     at 115,328 bytes, two blocks an SM: one runs while the other waits.
+//     What bounds the route is issuing instructions (the cosine's split of
+//     W, the copies' and loads' address arithmetic), so its block keeps
+//     them few (see "the cluster route" below).  The splits are sized by
+//     the clusters that the card holds at once (flash_aam_fwd_clusters).
+//   D > CMAX: fwd_chunks_kernel.  A cluster would exceed the portable size,
+//     so each block streams every class tile's cosines and norms in
+//     128-deep chunks of e and W through chunked_cosine, on the tiles
+//     kernel's blocks and epilogue.
+// Both deep routes form chunked_cosine's bits, which the backward forms on
+// the same tiles, so the bits still agree.  Rows of e and W whose length is
+// a multiple of 4 are staged with 16-byte cp.async copies; other D take
+// 4-byte copies (VEC = 1).
 
 #include "flash_aam_cosine.cuh"
 
@@ -132,9 +168,9 @@ __device__ __forceinline__ void fold_tile(Rows& rd, const float (&dot)[4], const
 
 // Merge the 16 states of each row of the block's tile, the 4 lanes of a
 // warp that share it (shuffles) and then the 4 warps (through xch, in warp
-// order), and write one partial state per (split, row).
-__device__ __forceinline__ void write_states(Rows& rd, float* xch, int row0, int B, int split,
-                                             float* __restrict__ part) {
+// order), and write partial state `idx` of each row, of n_parts.
+__device__ __forceinline__ void write_states(Rows& rd, float* xch, int row0, int B, int idx,
+                                             int n_parts, float* __restrict__ part) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   __syncthreads();  // every warp is done with xch
@@ -148,8 +184,8 @@ __device__ __forceinline__ void write_states(Rows& rd, float* xch, int row0, int
     }
   }
   __syncthreads();
-  if (threadIdx.x >= TB) return;
   const int r = threadIdx.x;
+  if (r >= TB || row0 + r >= B) return;
   const int grp = r >> 4;  // rows [16 grp, 16 grp + 16) are warps 2 grp, 2 grp + 1, + 4, + 5's
   RowState acc = {NEG_INF, 0.0f, 0.0f, 0.0f};
 #pragma unroll
@@ -157,9 +193,8 @@ __device__ __forceinline__ void write_states(Rows& rd, float* xch, int row0, int
     const float* o = xch + ((2 * grp + (k & 1) + 4 * (k >> 1)) * 16 + (r & 15)) * 4;
     merge(acc, {o[0], o[1], o[2], o[3]});
   }
-  if (row0 + r >= B) return;
-  const size_t plane = (size_t)gridDim.y * B;
-  const size_t at = (size_t)split * B + row0 + r;
+  const size_t plane = (size_t)n_parts * B;
+  const size_t at = (size_t)idx * B + row0 + r;
   part[at] = acc.m;
   part[plane + at] = acc.s;
   part[2 * plane + at] = acc.zy;
@@ -219,7 +254,7 @@ fwd_tiles_kernel(const float* __restrict__ e, const float* __restrict__ w,
     if (t + 1 < tile_hi) tile_rnorms(odd ? ws0 : ws1, DP, odd ? rinv0 : rinv1);
     fold_tile(rd, dot, ri, t * TC + cls0, C, mg);
   }
-  write_states(rd, xch, row0, B, split, part);
+  write_states(rd, xch, row0, B, split, gridDim.y, part);
 }
 
 // D > DMAX: the same blocks, each class tile's cosines and norms streamed
@@ -253,26 +288,308 @@ fwd_chunks_kernel(const float* __restrict__ e, const float* __restrict__ w,
     const float ri[2] = {rinv[cls0], rinv[cls0 + 1]};
     fold_tile(rd, dot, ri, t * TC + cls0, C, mg);
   }
-  write_states(rd, xch, row0, B, split, part);
+  write_states(rd, xch, row0, B, split, gridDim.y, part);
 }
 
-// Merge the per-split states of each row, one warp a row: lane l takes the
-// splits l, l + 32, ... in order, then a fixed butterfly joins the lanes:
+// ---- the cluster route (DMAX < D <= CMAX) ----
+//
+// The route is bound by issuing instructions (see PERF.md), so its block
+// keeps them few while it forms chunked_cosine's bits:
+// - the e slice is split into its TF32 parts once and kept in the order in
+//   which the MMAs read their A fragments (stage_e_fragments), so the
+//   cosine loads each fragment with one 16-byte load and splits only W;
+// - each warp forms one 16 x 16 quadrant of one chunk over the chunk's
+//   whole depth, both halves of cosine_dots' sum, with no exchange;
+// - the W slices are staged with addresses fixed before the loop
+//   (stage_slice_fast), and their sums of squares are taken in tile_sq's
+//   order from four base addresses (slice_sq_fast).
+
+// The e slice in fragment order: for chunk c, row block rb (rows 16 rb ..
+// 16 rb + 15), 16-deep step s of the chunk, part p (0, 1: the big parts of
+// MMA step 0, 1; 2, 3: the small parts) and lane (g, t), the four floats
+// {A[g][k], A[g + 8][k], A[g][k + 1], A[g + 8][k + 1]} of rows 16 rb + ..
+// at depths k = 16 s + 4 t + 2 (p % 2) of the chunk, as warp_mma_k16 feeds
+// its A fragments.  16,384 floats.
+__device__ __forceinline__ int e_fragment(int c, int rb, int s, int p) {
+  return (((c * 2 + rb) * 8 + s) * 4 + p) * 32 * 4;
+}
+
+// Split the e slice, staged raw as two swizzled [TB][KC] chunks at raw, into
+// ef (e_fragment's order).  The caller syncs before and after.
+__device__ __forceinline__ void stage_e_fragments(const float* raw, float* ef) {
+  for (int u = threadIdx.x; u < 2 * 2 * 8 * 32; u += THREADS) {
+    const int lane = u & 31, s = u >> 5 & 7, rb = u >> 8 & 1, c = u >> 9;
+    const int g = lane >> 2, k = 16 * s + 4 * (lane & 3);
+    const float* ch = raw + c * TB * KC;
+    const float4 r0 = *reinterpret_cast<const float4*>(ch + tf32x3::at(16 * rb + g, k, KC));
+    const float4 r1 = *reinterpret_cast<const float4*>(ch + tf32x3::at(16 * rb + g + 8, k, KC));
+    const float x[2][4] = {{r0.x, r0.y, r0.z, r0.w}, {r1.x, r1.y, r1.z, r1.w}};
+    tf32x3::Split sp[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sp[h][e] = tf32x3::split(x[h][e]);
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      const int e0 = 2 * st;
+      float4* big = reinterpret_cast<float4*>(ef + e_fragment(c, rb, s, st)) + lane;
+      float4* small = reinterpret_cast<float4*>(ef + e_fragment(c, rb, s, 2 + st)) + lane;
+      *big = make_float4(__uint_as_float(sp[0][e0].big), __uint_as_float(sp[1][e0].big),
+                         __uint_as_float(sp[0][e0 + 1].big), __uint_as_float(sp[1][e0 + 1].big));
+      *small =
+          make_float4(__uint_as_float(sp[0][e0].small), __uint_as_float(sp[1][e0].small),
+                      __uint_as_float(sp[0][e0 + 1].small), __uint_as_float(sp[1][e0 + 1].small));
+    }
+  }
+}
+
+// tf32x3::warp_mma_k16<1, 2> at 16-deep step s of chunk c for row block rb,
+// with A's fragments from ef (stage_e_fragments): the same fragments, the
+// same MMAs in the same order, so the same bits.
+__device__ __forceinline__ void warp_mma_k16_ef(float (&acc)[1][2][4], const float* ef, int c,
+                                                int rb, int s, const float* B, int ldb, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int k = 16 * s + 4 * (lane & 3);
+  uint32_t fa[4][4];  // [part][fragment register]
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const uint4 v = *(reinterpret_cast<const uint4*>(ef + e_fragment(c, rb, s, p)) + lane);
+    fa[p][0] = v.x, fa[p][1] = v.y, fa[p][2] = v.z, fa[p][3] = v.w;
+  }
+  uint32_t bb[2][4], bs[2][4];  // [n-tile][depth]
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float4 v = *reinterpret_cast<const float4*>(B + tf32x3::at(n0 + 8 * j + g, k, ldb));
+    const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const tf32x3::Split sp = tf32x3::split(x[e]);
+      bb[j][e] = sp.big, bs[j][e] = sp.small;
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < 2; ++st) {
+    const int e0 = 2 * st;
+    uint32_t fbb[2][2], fbs[2][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      fbb[j][0] = bb[j][e0], fbb[j][1] = bb[j][e0 + 1];
+      fbs[j][0] = bs[j][e0], fbs[j][1] = bs[j][e0 + 1];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) tf32x3::mma(acc[0][j], fa[2 + st], fbb[j]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) tf32x3::mma(acc[0][j], fa[st], fbs[j]);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) tf32x3::mma(acc[0][j], fa[st], fbb[j]);
+  }
+}
+
+// slice_partials' partials, formed by other warps: warp w takes chunk
+// k0 + w / 4 of the slice (if it lies below n_ch) and in it the 16 x 16
+// quadrant q = w % 4 that cosine_dots gives warps q and q + 4, over the
+// chunk's whole depth: each half's 16-deep 3xTF32 steps added from 0 in
+// order, then the two halves (cosine_dots' sum, one warp doing both halves,
+// so no exchange).  It publishes what cluster_dot reads: the four floats of
+// thread 32 (4 j + q) + lane (the thread that cosine_dots gives n-tile j of
+// quadrant q) at pub + c * THREADS * 4 + 4 * thread.
+__device__ __forceinline__ void chunk_partials(const float* ef, const float* ws, int k0,
+                                               int n_ch, float* pub) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int c = warp >> 2;
+  const int quad = warp & 3;
+  if (k0 + c >= n_ch) return;
+  const float* wc = ws + c * TC * KC;
+  float half[2][2][4];
+#pragma unroll
+  for (int kh = 0; kh < 2; ++kh) {
+    float sum[1][2][4] = {};
+#pragma unroll 2
+    for (int s = 4 * kh; s < 4 * kh + 4; ++s) {
+      float chunk[1][2][4] = {};
+      warp_mma_k16_ef(chunk, ef, c, quad >> 1, s, wc, KC, 16 * (quad & 1));
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum[0][j][q] = __fadd_rn(sum[0][j][q], chunk[0][j][q]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) half[kh][j][q] = sum[0][j][q];
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    *reinterpret_cast<float4*>(pub + c * THREADS * 4 + 4 * ((4 * j + quad) * 32 + lane)) =
+        make_float4(__fadd_rn(half[0][j][0], half[1][j][0]),
+                    __fadd_rn(half[0][j][1], half[1][j][1]),
+                    __fadd_rn(half[0][j][2], half[1][j][2]),
+                    __fadd_rn(half[0][j][3], half[1][j][3]));
+}
+
+// stage_slice with the copies' addresses fixed outside their loop: with
+// 16-byte copies every thread's rows keep one swizzle (they step by 8).
+template <int VEC>
+__device__ __forceinline__ void stage_slice_fast(float* dst, const float* __restrict__ x,
+                                                 int row0, int n_rows, int D, int slice) {
+  constexpr int PER_ROW = KC / VEC;          // threads per row
+  constexpr int R_STEP = THREADS / PER_ROW;  // rows per pass
+  const int col = threadIdx.x % PER_ROW * VEC;
+  const int r = threadIdx.x / PER_ROW;
+  const float* src = x + (size_t)(row0 + r) * D + slice * SW + col;
+  const uint32_t d = tf32x3::smem_addr(dst + r * KC);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int left = D - slice * SW - c * KC - col;  // this thread's columns left in the row
+    const int bytes = left <= 0 ? 0 : VEC == 4 ? 4 * min(4, left) : 4;
+#pragma unroll
+    for (int i = 0; i < TB / R_STEP; ++i) {
+      const int rr = r + R_STEP * i;
+      const bool ok = bytes > 0 && row0 + rr < n_rows;
+      const uint32_t dd =
+          d + 4u * (c * TB * KC + R_STEP * i * KC + (col ^ tf32x3::swz(rr)));
+      const float* s = src + (size_t)R_STEP * i * D + c * KC;
+      if (VEC == 4)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dd),
+                     "l"(ok ? s : x), "r"(ok ? bytes : 0));
+      else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dd),
+                     "l"(ok ? s : x), "r"(ok ? bytes : 0));
+    }
+  }
+}
+
+// slice_sq with tile_sq's arithmetic (the same fmaf order, the same
+// butterfly): logical column j + 8 (4 a + b) of row r lies at
+// (j ^ (s & 4)) + 32 a + 8 (b ^ (s >> 3 & 3)), s = swz(r), so the 16 loads
+// of a chunk take four base addresses and immediate offsets.
+__device__ __forceinline__ void slice_sq_fast(const float* ws, int k0, int n_ch, float* sq) {
+  const int r = threadIdx.x >> 3;
+  const int j = threadIdx.x & 7;
+  const int s = tf32x3::swz(r);
+  const float* row = ws + r * KC + (j ^ (s & 4));
+  const int k = s >> 3 & 3;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (k0 + c >= n_ch) break;
+    float acc = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float v = row[c * TC * KC + 32 * a + 8 * (b ^ k)];
+        acc = fmaf(v, v, acc);
+      }
+    acc += __shfl_xor_sync(FULL, acc, 4);
+    acc += __shfl_xor_sync(FULL, acc, 2);
+    acc += __shfl_xor_sync(FULL, acc, 1);
+    if (j == 0) sq[c * TC + r] = acc;
+  }
+}
+
+// fwd_cluster_kernel's shared memory: the e slice in fragment order (both
+// TF32 parts), one W tile's slice (two chunks; first the raw e slice, at
+// the end the row states), two buffers of two chunks' published cosine
+// partials, two buffers of two chunks' published sums of squares, and
+// rinv.  115,328 bytes: two blocks an SM (each SM has 228 KB, and each
+// block 1 KB of it is the system's).
+__host__ __device__ inline int cluster_smem_floats() {
+  return 2 * 2 * TB * KC + 2 * TC * KC + 2 * 2 * THREADS * 4 + 2 * 2 * TC + TC;
+}
+
+// DMAX < D <= CMAX: one cluster of n_slices(D) blocks per (batch tile,
+// split), consecutive in x, cluster u on batch tile u % n_rt of split
+// u / n_rt, block `slice` (its rank) on the depths [SW slice, SW slice + SW)
+// (see the top of this file).
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+fwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
+                   const int* __restrict__ labels, const float* __restrict__ zt, int B, int C,
+                   int D, int tiles_per_split, Margin mg, float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  float* ef = smem;                                  // the e slice, e_fragment's order
+  float* wt = ef + 2 * 2 * TB * KC;                  // W tile t's slice
+  float* pub = wt + 2 * TC * KC;                     // [2][2][THREADS][4], published
+  float* sqp = pub + 2 * 2 * THREADS * 4;            // [2][2][TC], published
+  float* rinv = sqp + 2 * 2 * TC;                    // [TC]
+
+  const int n_s = n_slices(D);
+  const int slice = cluster_rank();
+  const int unit = blockIdx.x / n_s;
+  const int n_rt = (B + TB - 1) / TB;
+  const int row0 = unit % n_rt * TB;
+  const int split = unit / n_rt;
+  const int n_tiles = (C + TC - 1) / TC;
+  const int n_splits = (n_tiles + tiles_per_split - 1) / tiles_per_split;
+  const int tile_lo = split * tiles_per_split;
+  const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
+  const int n_ch = n_chunks(D);
+  const int k0 = 2 * slice;
+  const int cls0 = 8 * cosine_ntile(threadIdx.x >> 5) + 2 * (threadIdx.x & 3);
+
+  stage_slice_fast<VEC>(wt, e, row0, B, D, slice);  // the raw e slice, through wt
+  tf32x3::commit();
+  Rows rd = row_data(labels, zt, B, row0);
+  tf32x3::wait_pending<0>();
+  __syncthreads();
+  stage_e_fragments(wt, ef);
+  __syncthreads();  // every warp is done with the raw e slice
+  stage_slice_fast<VEC>(wt, w, tile_lo * TC, C, D, slice);
+  tf32x3::commit();
+
+  for (int t = tile_lo; t < tile_hi; ++t) {
+    const int cur = (t - tile_lo) & 1;
+    tf32x3::wait_pending<0>();
+    __syncthreads();  // tile t has landed, and the owner of t - 1 is done with rinv
+    // buffer cur is free: tile t - 2's owner read it before it arrived at
+    // tile t - 1's barrier, which this block has passed
+    float* pb = pub + cur * 2 * THREADS * 4;
+    float* sb = sqp + cur * 2 * TC;
+    chunk_partials(ef, wt, k0, n_ch, pb);
+    slice_sq_fast(wt, k0, n_ch, sb);
+    if (t + 1 < tile_hi) {
+      __syncthreads();  // every warp is done with tile t's slice
+      stage_slice_fast<VEC>(wt, w, (t + 1) * TC, C, D, slice);
+      tf32x3::commit();
+    }
+    cluster_arrive();
+    cluster_wait();
+    if ((t - tile_lo) % n_s == slice) {
+      cluster_rnorms(sb, n_ch, rinv);
+      float dot[4];
+      cluster_dot(dot, pb, n_ch);
+      __syncthreads();  // rinv
+      const float ri[2] = {rinv[cls0], rinv[cls0 + 1]};
+      fold_tile(rd, dot, ri, t * TC + cls0, C, mg);
+    }
+  }
+  cluster_arrive();  // this block reads no peer's shared memory any more
+  // the last tile took no copy: wt is free for the row states
+  write_states(rd, wt, row0, B, split * n_s + slice, n_splits * n_s, part);
+  cluster_wait();  // no block leaves while a peer may read its shared memory
+}
+
+// Merge the n_parts partial states of each row (one per split, or one per
+// block of each split's cluster), one warp a row: lane l takes the parts l,
+// l + 32, ... in order, then a fixed butterfly joins the lanes:
 // mx = M = max_i m_i, lse = M + log(sum_i s_i exp(m_i - M)), zy = sum zy_i
-// (one split holds the target, the others add 0), cnt = sum cnt_i.
-__global__ void merge_kernel(const float* __restrict__ part, int n_splits, int B,
+// (one part holds the target, the others add 0), cnt = sum cnt_i.  A part
+// that saw no class, (m, s) = (NEG_INF, 0), adds exactly 0 to the sum.
+__global__ void merge_kernel(const float* __restrict__ part, int n_parts, int B,
                              float* __restrict__ lse, float* __restrict__ zy,
                              float* __restrict__ mx, float* __restrict__ cnt) {
   const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (r >= B) return;  // the whole warp
-  const size_t plane = (size_t)n_splits * B;
+  const size_t plane = (size_t)n_parts * B;
   float M = NEG_INF;
-  for (int i = lane; i < n_splits; i += 32) M = fmaxf(M, part[(size_t)i * B + r]);
+  for (int i = lane; i < n_parts; i += 32) M = fmaxf(M, part[(size_t)i * B + r]);
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(FULL, M, o));
   float S = 0.0f, Z = 0.0f, K = 0.0f;
-  for (int i = lane; i < n_splits; i += 32) {
+  for (int i = lane; i < n_parts; i += 32) {
     const size_t at = (size_t)i * B + r;
     S += part[plane + at] * expf(part[at] - M);
     Z += part[2 * plane + at];
@@ -291,33 +608,68 @@ __global__ void merge_kernel(const float* __restrict__ part, int n_splits, int B
   cnt[r] = K;
 }
 
+// The routes by depth: 0 fwd_tiles_kernel, 1 fwd_cluster_kernel, 2
+// fwd_chunks_kernel.
+inline int route_of(int D) { return D <= DMAX ? 0 : D <= CMAX ? 1 : 2; }
+
+// The blocks of one unit of work of depth D's route: a cluster of
+// n_slices(D) on the cluster route, 1 on the others.
+inline int cluster_size(int D) { return route_of(D) == 1 ? n_slices(D) : 1; }
+
+// The route's kernel for depth D and its dynamic shared memory, with the
+// kernel allowed that much.
+template <int VEC>
+cudaError_t route(int D, const void** kernel, size_t* smem) {
+  if (route_of(D) == 0) {
+    const int DP = padded_depth(D);
+    *smem = sizeof(float) * (TB * DP + 2 * TC * DP + 2 * TC + WARPS * 128);
+    *kernel = reinterpret_cast<const void*>(fwd_tiles_kernel<VEC>);
+  } else if (route_of(D) == 1) {
+    *smem = sizeof(float) * cluster_smem_floats();
+    *kernel = reinterpret_cast<const void*>(fwd_cluster_kernel<VEC>);
+    // two such blocks need the SM's whole 228 KB as shared memory
+    const cudaError_t err = cudaFuncSetAttribute(
+        *kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  } else {
+    *smem = sizeof(float) * (2 * (TB + TC) * KC + TC + WARPS * 128);
+    *kernel = reinterpret_cast<const void*>(fwd_chunks_kernel<VEC>);
+  }
+  return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
 template <int VEC>
 cudaError_t launch(const float* e, const float* w, const int* labels, const float* zt, int B,
                    int C, int D, int tiles_per_split, int n_splits, const Margin& mg,
                    float* part, float* lse, float* zy, float* mx, float* cnt,
                    cudaStream_t st) {
   static_assert(WARPS * 128 >= WARPS * 16 * 4, "xch holds the warps' row states");
-  const dim3 grid((B + TB - 1) / TB, n_splits);
-  cudaError_t err;
-  if (D <= DMAX) {
-    const int DP = padded_depth(D);
-    const size_t smem = sizeof(float) * (TB * DP + 2 * TC * DP + 2 * TC + WARPS * 128);
-    err = cudaFuncSetAttribute(fwd_tiles_kernel<VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int n_rt = (B + TB - 1) / TB;
+  const dim3 grid(n_rt, n_splits);
+  const void* kernel;
+  size_t smem;
+  cudaError_t err = route<VEC>(D, &kernel, &smem);
+  if (err != cudaSuccess) return err;
+  if (route_of(D) == 0) {
+    fwd_tiles_kernel<VEC><<<grid, THREADS, smem, st>>>(e, w, labels, zt, B, C, D,
+                                                       padded_depth(D), tiles_per_split, mg,
+                                                       part);
+  } else if (route_of(D) == 1) {
+    // a refused cluster launch returns its error: no other route stands in
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(D, n_rt * n_splits, smem, st, &attr);
+    err = cudaLaunchKernelEx(&cfg, fwd_cluster_kernel<VEC>, e, w, labels, zt, B, C, D,
+                             tiles_per_split, mg, part);
     if (err != cudaSuccess) return err;
-    fwd_tiles_kernel<VEC><<<grid, THREADS, smem, st>>>(e, w, labels, zt, B, C, D, DP,
-                                                       tiles_per_split, mg, part);
   } else {
-    const size_t smem = sizeof(float) * (2 * (TB + TC) * KC + TC + WARPS * 128);
-    err = cudaFuncSetAttribute(fwd_chunks_kernel<VEC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
     fwd_chunks_kernel<VEC><<<grid, THREADS, smem, st>>>(e, w, labels, zt, B, C, D,
                                                         tiles_per_split, mg, part);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  merge_kernel<<<(B + 7) / 8, 256, 0, st>>>(part, n_splits, B, lse, zy, mx, cnt);
+  merge_kernel<<<(B + 7) / 8, 256, 0, st>>>(part, n_splits * cluster_size(D), B, lse, zy, mx,
+                                            cnt);
   return cudaGetLastError();
 }
 
@@ -328,10 +680,34 @@ extern "C" {
 int flash_aam_fwd_block_rows() { return TB; }
 int flash_aam_fwd_block_classes() { return TC; }
 
+// The route that depth D takes: 0 fwd_tiles_kernel, 1 fwd_cluster_kernel,
+// 2 fwd_chunks_kernel.
+int flash_aam_fwd_route(int D) { return route_of(D); }
+
+// The blocks of one cluster of depth D's route: n_slices(D) on the cluster
+// route, 1 on the others.  Each block writes its own partial states.
+int flash_aam_fwd_cluster_size(int D) { return cluster_size(D); }
+
+// The clusters of the cluster route for depth D that the current device
+// holds at once (cudaOccupancyMaxActiveClusters with the route's shared
+// memory; the 16-byte-copy kernel, whose 4-byte twin has the same shared
+// memory and register cap), or -1 off that route or on a CUDA error.
+int flash_aam_fwd_clusters(int D) {
+  const void* kernel;
+  size_t smem;
+  int clusters = 0;
+  cudaLaunchAttribute attr;
+  if (route_of(D) != 1 || route<4>(D, &kernel, &smem) != cudaSuccess) return -1;
+  const cudaLaunchConfig_t cfg = cluster_config(D, 1, smem, nullptr, &attr);
+  if (cudaOccupancyMaxActiveClusters(&clusters, fwd_cluster_kernel<4>, &cfg) != cudaSuccess)
+    return -1;
+  return clusters;
+}
+
 // e (B, D) f32, w (C, D) f32, labels (B,) i32, zt (B,) f32, all contiguous on
-// the card; part is scratch of 4 * n_splits * B floats with
-// n_splits = ceil(ceil(C / TC) / tiles_per_split).  Launches on `stream` and
-// returns the cudaError_t of the launches (0 on success).
+// the card; part is scratch of 4 * n_splits * flash_aam_fwd_cluster_size(D)
+// * B floats with n_splits = ceil(ceil(C / TC) / tiles_per_split).  Launches
+// on `stream` and returns the cudaError_t of the launches (0 on success).
 int flash_aam_fwd(const void* e, const void* w, const void* labels, const void* zt,
                   int B, int C, int D, int tiles_per_split, int n_splits,
                   float s, float cos_m, float sin_m, float th, float mm,

@@ -50,11 +50,10 @@ DEFAULT_TILE = 2048
 _NEG_INF = -1e30
 _KERNEL = "flash_aam_fwd"
 _BWD_KERNEL = "flash_aam_bwd"
-# CUDA blocks per SM to aim for when the forward splits the class axis: two
-# of its blocks fill an SM's shared memory at D = 256, and the chunked blocks
-# of D > 256 take about as much.  The backward asks its library instead
-# (_bwd_occupancy): its routes for 256 < D <= 2048 hold one block an SM, and
-# the one above 512 runs in clusters.
+# CUDA blocks per SM to aim for when the forward's tiles and chunked routes
+# split the class axis: two of their blocks fill an SM's shared memory.  Its
+# cluster route and every route of the backward ask their library instead
+# (_occupancy).
 _BLOCKS_PER_SM = 2
 
 
@@ -223,6 +222,66 @@ def _n_splits(n_tiles, n_btiles, units, per_unit):
     return tiles_per_split, -(-n_tiles // tiles_per_split)
 
 
+def _cluster_splits(n_tiles, n_btiles, clusters):
+    """(class tiles per split, splits) for the forward's cluster route,
+    whose (batch tile, split) workers are clusters with nothing to fill the
+    card around them.  It takes _n_splits' even share, unless those workers
+    outnumber the clusters that the card holds at once: then the last
+    split's short workers wait for a second wave, and the slowest cluster
+    walks max(tps, 2·r) tiles (r: the last split's).  The split that fits
+    one wave, ⌈n_tiles / ⌊clusters / n_btiles⌋⌉ tiles, is taken where it
+    walks fewer."""
+    tps, n_splits = _n_splits(n_tiles, n_btiles, clusters, 1)
+    per_bt = clusters // n_btiles
+    if n_btiles * n_splits <= clusters or per_bt < 1:
+        return tps, n_splits
+    one_wave = -(-n_tiles // per_bt)
+    if one_wave < max(tps, 2 * (n_tiles - (n_splits - 1) * tps)):
+        return one_wave, -(-n_tiles // one_wave)
+    return tps, n_splits
+
+
+# each library's routes, in the order of its <kernel>_route(D) codes
+_ROUTES = {_KERNEL: ("tiles", "cluster", "chunks"),
+           _BWD_KERNEL: ("tiles", "wide", "chunks", "cluster")}
+
+
+def _query(kernel: str, name: str, D: int) -> int:
+    """``int name(int D)`` of the built library of ``kernel``."""
+    fn = getattr(_native.load(kernel), name)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return fn(D)
+
+
+@functools.lru_cache(maxsize=None)
+def _route(kernel: str, D: int) -> str:
+    """A kernel's route for depth D, as its library picks it.  The
+    forward's: ``tiles`` (D ≤ 256), ``cluster`` (to 2048) or ``chunks``; the
+    backward's: ``tiles`` (D ≤ 256), ``wide`` (to 512), ``cluster`` (to
+    2048) or ``chunks``."""
+    return _ROUTES[kernel][_query(kernel, f"{kernel}_route", D)]
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(kernel: str, index: int, D: int, query: str) -> int:
+    """The library's occupancy ``query`` for depth D on card ``index``:
+    blocks of the route an SM (``flash_aam_bwd_blocks_per_sm``) or clusters
+    of the cluster route on the card (``flash_aam_fwd_clusters``,
+    ``flash_aam_bwd_clusters``)."""
+    with torch.cuda.device(index):
+        n = _query(kernel, query, D)
+    if n < 1:
+        raise RuntimeError(f"{kernel}: {query} gave {n} at D = {D}")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_cluster_size(D: int) -> int:
+    """Blocks of one (batch tile, split) worker of the forward's route for
+    depth D, each writing its own partial states."""
+    return _query(_KERNEL, "flash_aam_fwd_cluster_size", D)
+
+
 def _launch(e_hat, weight, labels, zt, m, s):
     fn, bm, bn = _kernel()
     B, D = e_hat.shape
@@ -230,9 +289,17 @@ def _launch(e_hat, weight, labels, zt, m, s):
     dev = e_hat.device
     e_hat, weight, zt = (t.contiguous() for t in (e_hat, weight, zt))
     labels = labels.to(torch.int32).contiguous()
-    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm),
-                                          _sm_count(_device_index(dev)), _BLOCKS_PER_SM)
-    part = torch.empty((4, n_splits, B), dtype=torch.float32, device=dev)
+    index = _device_index(dev)
+    route = _route(_KERNEL, D)
+    n_tiles, n_btiles = -(-C // bn), -(-B // bm)
+    if route == "cluster":  # each worker is a cluster: split by the resident ones
+        tiles_per_split, n_splits = _cluster_splits(
+            n_tiles, n_btiles, _occupancy(_KERNEL, index, D, "flash_aam_fwd_clusters"))
+    else:
+        tiles_per_split, n_splits = _n_splits(n_tiles, n_btiles, _sm_count(index),
+                                              _BLOCKS_PER_SM)
+    part = torch.empty((4, n_splits * _fwd_cluster_size(D), B), dtype=torch.float32,
+                       device=dev)
     out = torch.empty((4, B), dtype=torch.float32, device=dev)
     cos_m, sin_m, th, mm = _margin_consts(m)
     with torch.cuda.device(dev):  # the launch goes to dev's current stream
@@ -244,6 +311,7 @@ def _launch(e_hat, weight, labels, zt, m, s):
     if err != 0:
         raise RuntimeError(f"flash_aam_fwd kernel launch failed: cudaError {err}")
     flash_aam_fwd.launches += 1
+    flash_aam_fwd.route_launches[route] += 1
     return out[0], out[1], out[2], out[3]
 
 
@@ -254,9 +322,10 @@ def flash_aam_fwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tenso
 
     e_hat (B, D) f32 L2-normalized embeddings, weight (C, D) f32 raw class
     weights, labels (B,) integer, zt (B,) f32 margined target logits.  A CUDA
-    tensor launches the kernel (counted in ``flash_aam_fwd.launches``; any
-    D) or raises; a CPU tensor runs the plain version (``tile`` sets its
-    class tile; the kernel tiles by its own 32 × 32 blocks)."""
+    tensor launches the kernel (counted in ``flash_aam_fwd.launches``, and
+    by its route for D in ``flash_aam_fwd.route_launches``; any D) or
+    raises; a CPU tensor runs the plain version (``tile`` sets its class
+    tile; the kernel tiles by its own 32 × 32 blocks)."""
     _check_inputs(e_hat, weight, labels, (zt,), ("zt",))
     if _on_card(e_hat, {"weight": weight, "labels": labels, "zt": zt}, "flash_aam_fwd"):
         return _launch(e_hat, weight, labels, zt, m, s)
@@ -264,6 +333,7 @@ def flash_aam_fwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tenso
 
 
 flash_aam_fwd.launches = 0
+flash_aam_fwd.route_launches = dict.fromkeys(_ROUTES[_KERNEL], 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,40 +348,10 @@ def _bwd_kernel():
     return fn, lib.flash_aam_bwd_block_rows(), lib.flash_aam_bwd_block_classes()
 
 
-_BWD_ROUTES = ("tiles", "wide", "chunks", "cluster")
-
-
-def _bwd_query(name: str, D: int) -> int:
-    """``int name(int D)`` of the built backward library."""
-    fn = getattr(_native.load(_BWD_KERNEL), name)
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    return fn(D)
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_route(D: int) -> str:
-    """The backward kernel's route for depth D, as its library picks it:
-    ``tiles`` (D ≤ 256), ``wide`` (to 512), ``cluster`` (to 2048) or
-    ``chunks``."""
-    return _BWD_ROUTES[_bwd_query("flash_aam_bwd_route", D)]
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_occupancy(index: int, D: int, query: str) -> int:
-    """The library's occupancy ``query`` for depth D on card ``index``:
-    blocks of the route an SM (``flash_aam_bwd_blocks_per_sm``) or clusters
-    of the cluster route on the card (``flash_aam_bwd_clusters``)."""
-    with torch.cuda.device(index):
-        n = _bwd_query(query, D)
-    if n < 1:
-        raise RuntimeError(f"flash_aam_bwd: {query} gave {n} at D = {D}")
-    return n
-
-
 def _bwd_blocks_per_sm(index: int, D: int) -> int:
     """Blocks of the backward's route for depth D that one SM of card
     ``index`` holds at once."""
-    return _bwd_occupancy(index, D, "flash_aam_bwd_blocks_per_sm")
+    return _occupancy(_BWD_KERNEL, index, D, "flash_aam_bwd_blocks_per_sm")
 
 
 def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
@@ -322,9 +362,9 @@ def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
     e_hat, weight, lse, g = (t.contiguous() for t in (e_hat, weight, lse, g))
     labels = labels.to(torch.int32).contiguous()
     index = _device_index(dev)
-    route = _bwd_route(D)
+    route = _route(_BWD_KERNEL, D)
     if route == "cluster":  # each de worker is a cluster: split by the resident ones
-        units, per_unit = _bwd_occupancy(index, D, "flash_aam_bwd_clusters"), 1
+        units, per_unit = _occupancy(_BWD_KERNEL, index, D, "flash_aam_bwd_clusters"), 1
     else:
         units, per_unit = _sm_count(index), _bwd_blocks_per_sm(index, D)
     tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), units, per_unit)
@@ -364,7 +404,7 @@ def flash_aam_bwd(e_hat: torch.Tensor, weight: torch.Tensor, labels: torch.Tenso
 
 
 flash_aam_bwd.launches = 0
-flash_aam_bwd.route_launches = dict.fromkeys(_BWD_ROUTES, 0)
+flash_aam_bwd.route_launches = dict.fromkeys(_ROUTES[_BWD_KERNEL], 0)
 
 
 def _acc_from(zy: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:

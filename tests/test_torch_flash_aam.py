@@ -198,6 +198,20 @@ def test_wrapper_checks_inputs():
     assert port_flash.flash_aam_fwd.launches == before  # CPU: plain version
 
 
+def test_cpu_call_counts_no_route():
+    """A CPU call of either wrapper runs the plain version and leaves every
+    route's launch count at 0: only a launch on the card counts."""
+    emb, w, labels = make(D=300)
+    e_hat, _ = port_flash._normalize(torch.from_numpy(emb))
+    wt, lt = torch.from_numpy(w), torch.from_numpy(labels)
+    zt = port_flash._margined_target_z(e_hat, wt, lt, 0.2, 30.0)
+    lse = port_flash.flash_aam_fwd(e_hat, wt, lt, zt)[0]
+    port_flash.flash_aam_bwd(e_hat, wt, lt, lse, torch.ones(16))
+    assert port_flash.flash_aam_fwd.route_launches == {"tiles": 0, "cluster": 0, "chunks": 0}
+    assert port_flash.flash_aam_bwd.route_launches == {"tiles": 0, "wide": 0, "chunks": 0,
+                                                       "cluster": 0}
+
+
 # (class tiles, batch tiles, SMs, blocks an SM): the kernels' shapes on an
 # H100 (132 SMs; the backward's wide route holds one block an SM, the other
 # routes and the forward two), then small and ragged cards
@@ -242,9 +256,9 @@ BLOCK_ROUTE_SPLITS = {
 
 
 def test_split_rule_of_the_block_routes_is_unchanged():
-    """The forward and the backward's tiles, wide and chunked routes split
-    by resident blocks (SMs × blocks an SM) and give the same numbers as
-    before the cluster route."""
+    """The tiles and chunked routes of both kernels and the backward's wide
+    route split by resident blocks (SMs × blocks an SM) and give the same
+    numbers as before the cluster routes."""
     assert set(BLOCK_ROUTE_SPLITS) == set(SPLIT_CASES)
     for case, want in BLOCK_ROUTE_SPLITS.items():
         assert port_flash._n_splits(*case) == want, case
@@ -276,6 +290,46 @@ def test_split_rule_by_clusters_covers_every_class_tile_once(n_tiles, n_btiles, 
     else:
         assert (tps - 1) * clusters < pairs <= tps * clusters
         assert -(-pairs // tps) <= fill < clusters + n_btiles
+
+
+# (class tiles, batch tiles, clusters the card holds at once) -> the
+# forward's cluster route's (tiles per split, splits): on an H100 (132
+# clusters of 2 at D = 300 and 512, 62 of 4 at 1024, 30 of 8 at 2048) at
+# B = 256, 128 and 100 over 7325 and 7001 classes, then small and ragged
+# cards
+FWD_CLUSTER_SPLITS = {
+    (229, 8, 132): (14, 17), (229, 8, 62): (33, 7), (229, 8, 30): (77, 3),
+    (229, 4, 132): (7, 33), (229, 4, 62): (15, 16), (219, 4, 132): (7, 32),
+    (219, 4, 62): (15, 15), (219, 4, 30): (30, 8), (219, 2, 30): (15, 15),
+    (229, 1, 62): (4, 58), (1, 1, 62): (1, 1), (5, 3, 2): (8, 1), (63, 2, 1): (126, 1),
+    (1000, 3, 7): (429, 3), (7, 4, 9): (4, 2)}
+
+
+def _span(n_tiles, n_btiles, clusters, tps, n_splits):
+    """Class tiles that the slowest cluster walks, the short workers of the
+    last split in a second wave where the workers outnumber the clusters."""
+    if n_btiles * n_splits <= clusters:
+        return tps
+    return max(tps, 2 * (n_tiles - (n_splits - 1) * tps))
+
+
+@pytest.mark.parametrize("case", list(FWD_CLUSTER_SPLITS))
+def test_forward_cluster_splits_keep_one_wave(case):
+    """The forward's cluster route (_cluster_splits): every class tile lies
+    in exactly one split and none is empty; it keeps _n_splits' even share
+    unless the workers outnumber the resident clusters and a one-wave split
+    spans fewer tiles, and it never spans more than the even share."""
+    n_tiles, n_btiles, clusters = case
+    tps, n_splits = port_flash._cluster_splits(*case)
+    assert (tps, n_splits) == FWD_CLUSTER_SPLITS[case]
+    owned = [t for split in range(n_splits)
+             for t in range(split * tps, min(split * tps + tps, n_tiles))]
+    assert sorted(owned) == list(range(n_tiles))
+    assert (n_splits - 1) * tps < n_tiles
+    even = port_flash._n_splits(n_tiles, n_btiles, clusters, 1)
+    assert _span(*case, tps, n_splits) <= _span(*case, *even)
+    if (tps, n_splits) != even:
+        assert n_btiles * n_splits <= clusters < n_btiles * even[1]
 
 
 def test_bwd_wrapper_checks_inputs():

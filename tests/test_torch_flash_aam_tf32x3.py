@@ -18,12 +18,15 @@ _off_the_clip).  The saturated case's cosine is exactly 1.0.  It also shows
 that the split's error is at least 10× below that of one TF32 product (big
 parts only), so the checks can tell the two apart.
 
-Rows deeper than 256 (D = 300, 512) take the kernels' chunked path
-(flash_aam_cosine.cuh: chunked_cosine): the depth in chunks of 128, the
-last padded with zeros, each chunk's dot the sum of its two 64-deep halves,
-each half the f32 sum of its 16-deep 3×TF32 products in order, and the
-chunks' dots added in chunk order.  mm_chunked emulates that order for the
-depth product and is held to the Pallas kernels at the same bars.  Up to
+Rows deeper than 256 take chunked_cosine's bits (flash_aam_cosine.cuh),
+on every deep route of both kernels: the depth in chunks of 128, the last
+padded with zeros, each chunk's dot the sum of its two 64-deep halves, each
+half the f32 sum of its 16-deep 3×TF32 products in order, and the chunks'
+dots added in chunk order.  The forward's cluster route (fwd_cluster_kernel,
+256 < D ≤ 2048) adds the chunks' dots and sums of squares that the
+cluster's blocks publish in that same order.  mm_chunked emulates that
+order for the depth product and is held to the Pallas kernels at the same
+bars, up to D = 2048, a cluster of 8.  Up to
 D = 512 the backward takes its wide route (flash_aam_bwd.cu:
 bwd_wide_kernel), which forms the same cosines but sums dW's projection
 dŵ·ŵ over the whole depth in one pass, in its warps' order (row_dot_wide);
@@ -31,7 +34,8 @@ the backward test holds that model to the Pallas kernel at D = 300 and 512.
 From 512 to 2048 it takes its cluster route (bwd_cluster_kernel), whose
 blocks each hold a 256-wide slice of the depth: the same cosines, and dW's
 projection summed per slice in its warps' order, then over the slices in
-slice order (row_dot_sliced), held to the Pallas kernel at D = 777 and 1024.
+slice order (row_dot_sliced), held to the Pallas kernel at D = 777, 1024 and
+2048.
 """
 
 import numpy as np
@@ -100,7 +104,8 @@ def mm_chunked(depth: int):
 DEEP_CASES = {"D300": (make(B=24, D=300, C=200, seed=12), 128),
               "D512": (make(B=24, D=512, C=300, seed=13), 256),
               "D1024": (make(B=24, D=1024, C=200, seed=14), 128),
-              "D777": (make(B=24, D=777, C=200, seed=15), 128)}
+              "D777": (make(B=24, D=777, C=200, seed=15), 128),
+              "D2048": (make(B=16, D=2048, C=100, seed=16), 128)}
 
 
 def row_dot_wide(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -292,7 +297,7 @@ def test_tf32x3_bwd_matches_pallas_bwd(name, monkeypatch):
     deep cases model the backward's route for their depth: the chunked
     cosine (mm_chunked) and dW's projection in the route's order, the wide
     route's (row_dot_wide) at D = 300 and 512, the cluster route's
-    (row_dot_sliced) at D = 777 and 1024."""
+    (row_dot_sliced) at D = 777, 1024 and 2048."""
     (emb, w, labels), tile = {**CASES, **DEEP_CASES}[name]
     mm = mm_tf32x3
     if name in DEEP_CASES:

@@ -19,12 +19,15 @@ to the plain version run in f64: the f32 plain version is itself ~3e-3 off
 there.  Two calls of either kernel on the same inputs give the same bits.
 The two kernels form the same cosine bits: with one class, the backward's
 gradients from the forward's own lse are exactly 0, at D <= 256 and at
-D > 256, where the forward streams the depth in 128-deep chunks and the
-backward keeps them resident up to D = 512 (its wide route), splits them
-over a thread-block cluster up to 2048 (its cluster route) and streams them
+D > 256, where the forward splits the depth over a thread-block cluster up
+to D = 2048 (its cluster route) and streams it in 128-deep chunks beyond,
+and the backward keeps the chunks resident up to D = 512 (its wide route),
+splits them over a cluster up to 2048 (its cluster route) and streams them
 beyond (D = 300, 301, 512, 777, 1024, 2048 and 2304 are held to the plain
-version in both directions; D = 301 and 777 take the 4-byte copies).  Each
-backward route holds as many blocks on an SM as its shared memory allows.  The flash gradients
+version in both directions, each on its routes; D = 301 and 777 take the
+4-byte copies).  Each backward route holds as many blocks on an SM as its
+shared memory allows, and each cluster route as many clusters as the card
+holds at once.  The flash gradients
 against the dense head's autograd (cuBLAS f32) at rtol 2e-3, atol 1e-6 as
 tests/test_flash_aam.py, and row by row within 1e-3.  Labels outside
 [0, C), the shard-local labels of a class-sharded head, give no target
@@ -80,11 +83,12 @@ def test_flash_aam_fwd_rejects_bad_inputs():
 
 
 @pytest.mark.gpu
-def test_flash_aam_fwd_is_deterministic():
+@pytest.mark.parametrize("D", [256, 300, 512, 1024, 2048])
+def test_flash_aam_fwd_is_deterministic(D):
     dev = _card()
     rng = np.random.default_rng(3)
-    emb = torch.from_numpy(rng.standard_normal((256, 256)).astype(np.float32)).to(dev)
-    w = torch.from_numpy(rng.standard_normal((7325, 256)).astype(np.float32)).to(dev)
+    emb = torch.from_numpy(rng.standard_normal((256, D)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((7325, D)).astype(np.float32)).to(dev)
     labels = torch.from_numpy(rng.integers(0, 7325, 256)).to(dev)
     e_hat, _ = flash_aam._normalize(emb)
     zt = flash_aam._margined_target_z(e_hat, w, labels, 0.2, 30.0)
@@ -97,7 +101,7 @@ def test_flash_aam_fwd_is_deterministic():
 @pytest.mark.gpu
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("B,D", [(256, 256), (100, 37), (256, 512), (100, 300), (100, 301),
-                                 (100, 1024)])
+                                 (100, 1024), (100, 777), (64, 2048)])
 def test_fwd_and_bwd_cosines_agree_bit_for_bit(B, D, exact):
     """With one class and every label 0, the forward's lse is its zy, so the
     backward's p = exp(z − lse) is exactly 1 and its gradients exactly 0
@@ -219,22 +223,57 @@ def test_flash_aam_off_shard_labels_match_plain(B, C, D, how):
         assert float((gt - r).abs().max()) <= 1e-3 * float(r.abs().max()) + 1e-6
 
 
-def _route(D):
-    return "wide" if D <= 512 else "cluster" if D <= 2048 else "chunks"
+def _fwd_route(D):
+    return "tiles" if D <= 256 else "cluster" if D <= 2048 else "chunks"
+
+
+def _bwd_route(D):
+    return "tiles" if D <= 256 else "wide" if D <= 512 else "cluster" if D <= 2048 else "chunks"
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [300, 301, 512, 777, 1024, 2048, 2304])
 def test_flash_aam_deep_rows_match_plain(D):
-    """D > 256 (the forward's chunked path; the backward's wide route up to
-    512, its cluster route to 2048 (D = 777 takes the 4-byte copies and a
-    ragged last slice, 2048 a cluster of 8) and its chunked route beyond)
-    against the plain versions at the bars above, forward and backward."""
-    route = _route(D)
-    before = flash_aam.flash_aam_bwd.route_launches[route]
+    """D > 256 (the forward's cluster route up to 2048 and its chunked route
+    beyond; the backward's wide route up to 512, its cluster route to 2048
+    and its chunked route beyond; D = 777 takes the 4-byte copies and a
+    ragged last slice, 2048 a cluster of 8) against the plain versions at
+    the bars above, forward and backward, each launch on its route."""
+    fwd, bwd = _fwd_route(D), _bwd_route(D)
+    before = (flash_aam.flash_aam_fwd.route_launches[fwd],
+              flash_aam.flash_aam_bwd.route_launches[bwd])
     test_flash_aam_fwd_matches_plain(100, 2001, D)
     test_flash_aam_bwd_matches_plain(100, 2001, D, False)
-    assert flash_aam.flash_aam_bwd.route_launches[route] == before + 1
+    # the backward case launches the forward once more, for its lse
+    assert (flash_aam.flash_aam_fwd.route_launches[fwd],
+            flash_aam.flash_aam_bwd.route_launches[bwd]) == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [256, 257, 512, 513, 2048, 2049])
+def test_flash_aam_fwd_route_by_depth(D):
+    """The forward's library picks the tiles route up to D = 256, the
+    cluster route to 2048 (clusters of ceil(D / 256) blocks, at least one
+    of which the card holds at once, and no more blocks than two an SM)
+    and the chunked route beyond, and a launch is counted on that route."""
+    dev = _card()
+    index = dev.index or 0
+    kernel = flash_aam._KERNEL
+    route = _fwd_route(D)
+    assert flash_aam._route(kernel, D) == route
+    size = flash_aam._query(kernel, "flash_aam_fwd_cluster_size", D)
+    if route == "cluster":
+        assert size == -(-D // 256)
+        clusters = flash_aam._occupancy(kernel, index, D, "flash_aam_fwd_clusters")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        assert 1 <= clusters and clusters * size <= 2 * sms
+    else:
+        assert size == 1
+        assert flash_aam._query(kernel, "flash_aam_fwd_clusters", D) == -1
+    before = dict(flash_aam.flash_aam_fwd.route_launches)
+    test_flash_aam_fwd_matches_plain(40, 300, D)
+    after = flash_aam.flash_aam_fwd.route_launches
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == route) for k in after}
 
 
 @pytest.mark.gpu
@@ -248,16 +287,17 @@ def test_flash_aam_bwd_blocks_per_sm_by_route(D, blocks):
     one, and no more blocks than its SMs hold."""
     dev = _card()
     index = dev.index or 0
+    kernel = flash_aam._BWD_KERNEL
     assert flash_aam._bwd_blocks_per_sm(index, D) == blocks
-    size = flash_aam._bwd_query("flash_aam_bwd_cluster_size", D)
+    size = flash_aam._query(kernel, "flash_aam_bwd_cluster_size", D)
     if 512 < D <= 2048:
         assert size == -(-D // 256)
-        clusters = flash_aam._bwd_occupancy(index, D, "flash_aam_bwd_clusters")
+        clusters = flash_aam._occupancy(kernel, index, D, "flash_aam_bwd_clusters")
         sms = torch.cuda.get_device_properties(index).multi_processor_count
         assert 1 <= clusters and clusters * size <= blocks * sms
     else:
         assert size == 1
-        assert flash_aam._bwd_query("flash_aam_bwd_clusters", D) == -1
+        assert flash_aam._query(kernel, "flash_aam_bwd_clusters", D) == -1
 
 
 @pytest.mark.gpu
