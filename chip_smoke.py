@@ -5,9 +5,10 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(`python3 chip_smoke.py --fwd-times ROOT` instead times the forward kernel
-alone at its deep shapes, from the pkr_tpu_torch of the checkout at ROOT:
-run in turns on two checkouts in one call, it compares them on one card.)
+(`python3 chip_smoke.py --deep-times ROOT` instead times both kernels at
+their deep shapes, D = 300, 512, 1024 (twice), 2304 and 4096, from the
+pkr_tpu_torch of the checkout at ROOT: run in turns on two checkouts in one
+call, it compares them on one card.)
 
 Phases, one JSON line each:
   env     the card's name, count and power limit (nvidia-smi);
@@ -17,29 +18,34 @@ Phases, one JSON line each:
           each: both kernels run on the tensor cores, so neither may have
           none; the backward's wide and cluster routes and the forward's
           cluster route may not spill);
-  kernel  each kernel against its plain PyTorch version on the card, at the
+  kernel  the clusters of each cluster route that the card holds at once
+          and its blocks an SM, at D = 1024, 2048, 2304, 3001 and 4096
+          (clusters of 4, 8, 9, 12 and 16 blocks; at least one each); each
+          kernel against its plain PyTorch version on the card, at the
           shapes of the paths and beyond: D = 256; the deep D = 512, 300 and
           301 (4-byte copies), which the forward takes through its cluster
           route and the backward through its wide route; D = 1024, 777
-          (4-byte copies, a ragged last slice) and 2048 (a cluster of 8),
-          the cluster route of both; and D = 2304, the chunked route of
-          both (the forward twice for the same bits at every deep D; a
-          gradient row by row, each row within 1e-3 of its
-          own norm, with planted faults the check must reject; the backward
-          also with every target p ≈ 0.993 against the plain version in
-          f64 at D = 256, 512 and 1024, at D = 37, with labels off the shard
-          at D = 256, 300 and 1024, and twice for the same bits at D = 256
-          and every deep D), with its time, the plain version's time, a
-          dense library yardstick's time and two roofline bounds (f32 CUDA
-          cores; 3×TF32 tensor cores); then the two kernels against each
-          other: with one class the backward's gradients are exactly 0 iff
-          both formed the same cosine bits (check_consistency, D = 256, 37,
-          512, 300, 301, 1024, 777 and 2048); and one flash and one dense
-          ResNet-34 train step of a 512-wide and of a 1024-wide embedding
-          agree, every forward launch of each path on the forward's
-          cluster route and every backward launch on its route (wide,
-          cluster), with both steps' ms and the flash step's device ms and
-          kernel share; the phase within 150 s;
+          (4-byte copies, a ragged last slice), 2048 (a cluster of 8), 2304
+          (9, every slice full), 3001 (12, 4-byte copies, a last slice of
+          185 columns) and 4096 (16), the cluster route of both; and
+          D = 4608, the chunked route of both (the forward twice for the
+          same bits at every deep D; a gradient row by row, each row within
+          1e-3 of its own norm, with planted faults the check must reject;
+          the backward also with every target p ≈ 0.993 against the plain
+          version in f64 at D = 256, 512 and 1024, at D = 37, with labels
+          off the shard at D = 256, 300 and 1024, and twice for the same
+          bits at D = 256 and every deep D), with its time, the plain
+          version's time, a dense library yardstick's time and two roofline
+          bounds (f32 CUDA cores; 3×TF32 tensor cores); then the two kernels
+          against each other: with one class the backward's gradients are
+          exactly 0 iff both formed the same cosine bits
+          (check_consistency, D = 256, 37, 512, 300, 301, 1024, 777, 2048,
+          2304, 3001, 4096 and 4608); and one flash and one dense ResNet-34
+          train step of a 512-, a 1024- and a 4096-wide embedding agree,
+          every forward launch of each path on the forward's cluster route
+          and every backward launch on its route (wide, cluster, cluster in
+          clusters of 16), with both steps' ms and the flash step's device
+          ms and kernel share; the phase within 150 s;
   slice   the serving path at full width — 128 six-second utterances through
           wav_to_train_feats → ResNet-34 SpeakerModel (7325-speaker AAM head,
           seeded random weights) → extract_embeddings → the flash eval step →
@@ -149,8 +155,11 @@ Phases, one JSON line each:
           dryrun_multichip(2); the phase within 150 s;
   kernels every kernel with its launches on the paths and its errors (the
           backward's also with a `deep` record of its times at 256 × 7325 ×
-          512), and the cluster route of each on its own row (each timed at
-          100 × 7001 × 1024, with a `deep` record at 256 × 7325 × 1024).
+          512), then one entry for each deeper route: the backward's wide
+          route (timed at 256 × 7325 × 512), each cluster route (timed at
+          100 × 7001 × 1024, with a `deep` record at 256 × 7325 × 1024 and
+          `shapes` at 100 × 7001 × 2304 and 256 × 7325 × 4096) and each
+          chunked route (timed at 100 × 7001 × 4608; launched by no path).
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
 or outside a checkout, it fails at once and prints no result.
@@ -349,16 +358,17 @@ def phase_build():
               "wall_seconds_all": wall, "ptxas": info["ptxas"], "hmma_instructions": hmma})
         check(hmma > 0, f"the {name} library has no HMMA instruction")
     # the backward's route for 256 < D <= 512 holds a 32 x 512 accumulator a
-    # block in registers, its cluster route (512 < D <= 2048) a 32 x 256
+    # block in registers, its cluster route (512 < D <= 4096) a 32 x 256
     # slice in the 128 registers of two blocks an SM, and the forward's
-    # cluster route (256 < D <= 2048) runs two blocks an SM too: none may
-    # spill
-    for lib, kernel in (("flash_aam_bwd", "bwd_wide_kernel"),
-                        ("flash_aam_bwd", "bwd_cluster_kernel"),
-                        ("flash_aam_fwd", "fwd_cluster_kernel")):
+    # cluster route (256 < D <= 4096) runs two blocks an SM too: none may
+    # spill (each cluster kernel has a 16- and a 4-byte-copy instantiation,
+    # each in two exchanges: up to the portable cluster size and past it)
+    for lib, kernel, n in (("flash_aam_bwd", "bwd_wide_kernel", 2),
+                           ("flash_aam_bwd", "bwd_cluster_kernel", 4),
+                           ("flash_aam_fwd", "fwd_cluster_kernel", 4)):
         ptxas = _native.BUILD_INFO[lib]["ptxas"]
         found = {k: v for k, v in ptxas.items() if kernel in k}
-        check(len(found) == 2, f"ptxas reported {len(found)} {kernel} instantiations, not 2")
+        check(len(found) == n, f"ptxas reported {len(found)} {kernel} instantiations, not {n}")
         for k, v in found.items():
             check(v.get("spill_bytes") == 0, f"{k} spills: {v}")
 
@@ -417,12 +427,14 @@ def _rank_gaps(torch, emb, w, labels, rows, k):
 FWD_KERNELS = ("fwd_tiles_kernel", "fwd_cluster_kernel", "fwd_chunks_kernel", "merge_kernel")
 
 
-def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True, repeat=False):
+def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True, repeat=False,
+                     iters=None):
     """flash_aam_fwd against flash_aam_fwd_plain: lse and zy within 5e-4,
     the loss within 2e-4, top-1 and top-5 equal but on rows whose rank gap
     is under 1e-4; `repeat` also checks that a second call gives the same
     bits.  `timed` adds the kernel's, the plain version's and the dense
-    library yardstick's times, with both bounds."""
+    library yardstick's times, with both bounds (over `iters` calls, by
+    default as many as take about as long as 2e11 B·C·D units)."""
     from pkr_tpu_torch.ops import flash_aam as fa
 
     emb, w, labels = _flash_inputs(torch, B, C, D, seed, saturated)
@@ -463,7 +475,7 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True, re
             z = aam_logits(emb, w, labels)
             return torch.logsumexp(z, dim=1), z.gather(1, labels[:, None])
 
-        iters = max(3, min(50, int(2e11 / (B * C * D))))
+        iters = iters or max(3, min(50, int(2e11 / (B * C * D))))
         timed_fns = (("kernel", lambda: fa.flash_aam_fwd(e_hat, w, labels, zt),
                       FWD_KERNELS),
                      ("plain", lambda: fa.flash_aam_fwd_plain(e_hat, w, labels, zt), None),
@@ -524,7 +536,7 @@ def planted_faults(torch, got, ref, labels=None):
 
 
 def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True,
-                         confident=False, repeat=False):
+                         confident=False, repeat=False, iters=None):
     """flash_aam_bwd against flash_aam_bwd_plain, on dê and on dW: every row
     within ROW_TOL of its own norm (row_rel_err), and max|Δ| ≤
     1e-3·max|ref| + 1e-6 over the tensor (the kernel and cuBLAS sum in
@@ -535,7 +547,8 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
     s·Δcos/(1 − p) magnifies any rounding of a cosine ~4000×: there the f32
     plain version is itself ~3e-3 off, so the kernel is held to the plain
     version run in f64 (the f32 plain version's own row error is reported).
-    `repeat` also checks that a second call gives the same bits."""
+    `repeat` also checks that a second call gives the same bits; `iters`
+    sets the timed calls (check_flash_case)."""
     from pkr_tpu_torch.ops import flash_aam as fa
 
     emb, w, labels = _flash_inputs(torch, B, C, D, seed, saturated, confident)
@@ -592,7 +605,7 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
         def dense_bwd():
             return torch.autograd.grad(dense_loss, (e_d, w_d), retain_graph=True)
 
-        iters = max(3, min(30, int(1e11 / (B * C * D))))
+        iters = iters or max(3, min(30, int(1e11 / (B * C * D))))
         for tag, fn, only in (
                 ("kernel", lambda: fa.flash_aam_bwd(e_hat, w, labels, lse, g), BWD_KERNELS),
                 ("plain", lambda: fa.flash_aam_bwd_plain(e_hat, w, labels, lse, g), None),
@@ -750,24 +763,57 @@ def check_consistency(torch, B, D, seed, exact):
 
 
 KERNEL_BUDGET_S = 150.0
+# the cluster routes' depths past the portable cluster size (8): clusters
+# of 9, 12 and 16 blocks
+NONPORTABLE_D = (2304, 3001, 4096)
+
+
+def resident_clusters(torch, smi_line):
+    """The clusters of each cluster route that the card holds at once, and
+    its blocks an SM, at D = 1024 and 2048 (clusters of 4 and 8) and at
+    NONPORTABLE_D (9, 12 and 16): the launch refuses a cluster that the card
+    cannot hold, so each must be at least 1."""
+    from pkr_tpu_torch.ops import flash_aam as fa
+
+    by_d = {}
+    with torch.cuda.device(0):
+        for D in (1024, 2048) + NONPORTABLE_D:
+            rec = {"n_s": fa._query(fa._KERNEL, "flash_aam_fwd_cluster_size", D),
+                   "bwd_n_s": fa._query(fa._BWD_KERNEL, "flash_aam_bwd_cluster_size", D)}
+            for kernel, short in ((fa._KERNEL, "fwd"), (fa._BWD_KERNEL, "bwd")):
+                rec[f"{short}_clusters"] = fa._query(kernel, f"{kernel}_clusters", D)
+                rec[f"{short}_blocks_per_sm"] = fa._query(kernel, f"{kernel}_blocks_per_sm", D)
+            by_d[D] = rec
+    emit({"phase": "kernel", "kernel": "resident_clusters", "by_D": by_d,
+          "sms": torch.cuda.get_device_properties(0).multi_processor_count, "card": smi_line})
+    for D, rec in by_d.items():
+        check(rec["n_s"] == rec["bwd_n_s"] == -(-D // 256), f"D = {D}: cluster sizes {rec}")
+        check(rec["fwd_clusters"] >= 1 and rec["bwd_clusters"] >= 1,
+              f"D = {D}: the card holds no cluster of {rec['n_s']}: {rec}")
+    return by_d
 
 
 def phase_kernel(torch, smi_line):
     t0 = time.perf_counter()
-    # D > 256 (the forward's cluster route to 2048 and its chunked route
-    # beyond; the backward's wide route up to 512, its cluster route to 2048
+    # D > 256 (the forward's cluster route to 4096 and its chunked route
+    # beyond; the backward's wide route up to 512, its cluster route to 4096
     # and its chunked route beyond): the 512-wide embedding at the train
     # batch, a ragged 100 x 7001 x 300, and D = 301, whose rows take 4-byte
     # copies; 4-byte copies and a ragged last slice at 777, the 1024-wide
-    # embedding, a cluster of 8 at 2048, and beyond it the chunked route,
-    # timed against the library; every deep case twice for the same bits
+    # embedding, a cluster of 8 at 2048; past the portable size clusters of
+    # 9 at 2304 (every slice full), of 12 at 3001 (4-byte copies, a last
+    # slice of 185 columns) and of 16 at 4096; beyond it the chunked
+    # routes at 4608, timed against the library; every deep case twice for
+    # the same bits
+    clusters = resident_clusters(torch, smi_line)
     cases = [("slice_eval", BATCH, SPK, 256, True), ("path_b256", 256, SPK, 256, True),
              ("path_b1024", 1024, SPK, 256, True), ("scale_c131072", 256, 131072, 256, True),
              ("ragged", 100, 7001, 256, False), ("path_b256_d512", 256, SPK, 512, True),
              ("ragged_d300", 100, 7001, 300, True), ("ragged_d301", 100, 7001, 301, False),
              ("ragged_d777", 100, 7001, 777, False), ("ragged_d1024", 100, 7001, 1024, True),
              ("train_b256_d1024", TRAIN_B, SPK, 1024, True), ("b64_d2048", 64, 7001, 2048, False),
-             ("ragged_d2304", 100, 7001, 2304, True)]
+             ("ragged_d2304", 100, 7001, 2304, True), ("ragged_d3001", 100, 7001, 3001, False),
+             ("b256_d4096", TRAIN_B, SPK, 4096, True), ("ragged_d4608", 100, 7001, 4608, True)]
     rows = [check_flash_case(torch, name, B, C, D, seed=i, timed=timed, repeat=D > 256)
             for i, (name, B, C, D, timed) in enumerate(cases)]
     rows.append(check_flash_case(torch, "saturated", 4, 300, 256, seed=9, saturated=True,
@@ -776,14 +822,18 @@ def phase_kernel(torch, smi_line):
                  ("scale_c131072", 256, 131072, 256, True), ("ragged", 100, 7001, 256, True),
                  ("train_b256_d512", TRAIN_B, SPK, 512, True),
                  ("ragged_d300", 100, 7001, 300, True), ("ragged_d301", 100, 7001, 301, False),
-                 # the cluster route (512 < D <= 2048): 4-byte copies and a
-                 # ragged last slice at 777, a cluster of 8 at 2048; beyond
-                 # it the chunked route, timed against the library
+                 # the cluster route (512 < D <= 4096): 4-byte copies and a
+                 # ragged last slice at 777, a cluster of 8 at 2048, of 9 at
+                 # 2304, of 12 at 3001 (4-byte copies, a ragged last slice)
+                 # and of 16 at 4096; beyond it the chunked route (~16 ms a
+                 # call at 4608: 5 timed calls), timed against the library
                  ("ragged_d1024", 100, 7001, 1024, True), ("ragged_d777", 100, 7001, 777, False),
                  ("train_b256_d1024", TRAIN_B, SPK, 1024, True),
-                 ("b64_d2048", 64, 7001, 2048, False), ("ragged_d2304", 100, 7001, 2304, True)]
+                 ("b64_d2048", 64, 7001, 2048, False), ("ragged_d2304", 100, 7001, 2304, True),
+                 ("ragged_d3001", 100, 7001, 3001, False), ("b256_d4096", TRAIN_B, SPK, 4096, True),
+                 ("ragged_d4608", 100, 7001, 4608, True)]
     bwd_rows = [check_flash_bwd_case(torch, name, B, C, D, seed=20 + i, timed=timed,
-                                     repeat=(i == 0 or D > 256))
+                                     repeat=(i == 0 or D > 256), iters=5 if D > 4096 else None)
                 for i, (name, B, C, D, timed) in enumerate(bwd_cases)]
     bwd_rows.append(check_flash_bwd_case(torch, "saturated", 4, 300, 256, seed=29,
                                          saturated=True, timed=False))
@@ -800,15 +850,16 @@ def phase_kernel(torch, smi_line):
     check_offshard_case(torch, "ragged_d300", 100, 7001, 300, 53, "minus_c")
     check_offshard_case(torch, "ragged_d1024", 100, 7001, 1024, 54, "mixed")
     for i, (B, D) in enumerate(((256, 256), (100, 37), (256, 512), (100, 300), (100, 301),
-                                (100, 1024), (100, 777), (64, 2048))):
+                                (100, 1024), (100, 777), (64, 2048), (100, 2304), (64, 3001),
+                                (64, 4096), (64, 4608))):
         for exact in (True, False):
             check_consistency(torch, B, D, seed=40 + i, exact=exact)
-    wide_launches = {D: check_wide_train(torch, smi_line, D) for D in (512, 1024)}
+    wide_launches = {D: check_wide_train(torch, smi_line, D) for D in (512, 1024, 4096)}
     phase_s = time.perf_counter() - t0
     emit({"phase": "kernel", "kernel": "all", "phase_s": phase_s, "card": smi_line})
     check(phase_s <= KERNEL_BUDGET_S, f"the kernel phase took {phase_s:.1f} s "
                                       f"(budget {KERNEL_BUDGET_S} s)")
-    return rows, bwd_rows, wide_launches
+    return rows, bwd_rows, wide_launches, clusters
 
 
 WIDE_B = 128
@@ -816,8 +867,8 @@ WIDE_B = 128
 
 def check_wide_train(torch, smi_line, D):
     """A D-wide embedding (SpeakerModel(emb_dim=D); the forward's cluster
-    route at both, the backward's wide route at D = 512, its cluster route at
-    1024): one flash step and one dense step from the same weights agree
+    route at every D, the backward's wide route at D = 512, its cluster
+    route at 1024 and 4096, in clusters of 4 and of 16): one flash step and one dense step from the same weights agree
     (flash_dense_agree), and every launch of each kernel on the path takes
     that route; then both steps' ms (_median_step_ms) and the flash step's
     device ms with its kernels' share."""
@@ -2800,27 +2851,40 @@ def phase_parallel(torch, smi_line, cfg=PAR):
     return launches
 
 
-# the forward's deep shapes that PERF.md tracks, timed by --fwd-times
-FWD_TIMED = (("b256_d512", TRAIN_B, SPK, 512), ("ragged_d300", 100, 7001, 300),
-             ("ragged_d1024", 100, 7001, 1024), ("b256_d1024", TRAIN_B, SPK, 1024))
+# both kernels' deep shapes that PERF.md tracks, timed by --deep-times:
+# below the portable cluster size, past it, and the widest cluster
+DEEP_TIMED = (("b256_d512", TRAIN_B, SPK, 512), ("ragged_d300", 100, 7001, 300),
+              ("ragged_d1024", 100, 7001, 1024), ("b256_d1024", TRAIN_B, SPK, 1024),
+              ("ragged_d2304", 100, 7001, 2304), ("b256_d4096", TRAIN_B, SPK, 4096))
 
 
-def fwd_times(torch, smi_line, root):
-    """The forward alone at FWD_TIMED, held against its plain version and
-    timed (check_flash_case), from the pkr_tpu_torch of the checkout at
-    `root`: `python3 chip_smoke.py --fwd-times ROOT`, run in turns on two
-    checkouts in one call, compares their kernels on one card."""
-    for i, (name, B, C, D) in enumerate(FWD_TIMED):
-        row = check_flash_case(torch, f"fwd_times_{name}", B, C, D, seed=60 + i)
-        emit({"fwd_times": name, "root": root, "card": smi_line, "kernel_ms": row["kernel_ms"],
-              "kernel_call_ms": row["kernel_call_ms"],
-              "kernel_ms_by_launch": row["kernel_ms_by_launch"],
-              "library_ms": row["library_ms"], "bound_ms": row["bound_ms"]})
+def _timing(row):
+    return {"kernel_ms": row["kernel_ms"], "kernel_call_ms": row["kernel_call_ms"],
+            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+            "bound_ms": row["bound_ms"], "bound_tc_ms": row["bound_tc_ms"]}
 
 
-def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys, deep_row=None):
+def deep_times(torch, smi_line, root):
+    """Both kernels at DEEP_TIMED, each held against its plain version and
+    timed (check_flash_case, check_flash_bwd_case), from the pkr_tpu_torch
+    of the checkout at `root`, with the route each launch took:
+    `python3 chip_smoke.py --deep-times ROOT`, run in turns on two checkouts
+    in one call, compares them on one card."""
+    from pkr_tpu_torch.ops import flash_aam as fa
+
+    for i, (name, B, C, D) in enumerate(DEEP_TIMED):
+        fwd = check_flash_case(torch, f"deep_times_{name}", B, C, D, seed=70 + i)
+        bwd = check_flash_bwd_case(torch, f"deep_times_{name}", B, C, D, seed=80 + i)
+        emit({"deep_times": name, "root": root, "card": smi_line, "B": B, "C": C, "D": D,
+              "fwd": {"route": fa._route(fa._KERNEL, D), **_timing(fwd)},
+              "bwd": {"route": fa._route(fa._BWD_KERNEL, D), **_timing(bwd)}})
+
+
+def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys, deep_row=None,
+                  more_rows=()):
     """One kernel's record for the kernels line, timed at main_row's shape;
-    `deep_row` adds a `deep` record of the same times at its shape."""
+    `deep_row` adds a `deep` record of the same times at its shape, and
+    `more_rows` one record each under `shapes`."""
     entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": sum(launches.values()), "launches_by_path": launches,
              "max_abs_err": max(max(r[k] for k in err_keys) for r in rows),
@@ -2830,11 +2894,16 @@ def _kernel_entry(name, source, replaces, launches, rows, main_row, err_keys, de
              "library_ms": main_row["library_ms"],
              "shape": {"B": main_row["B"], "C": main_row["C"], "D": main_row["D"]},
              "ok": True}
+
+    def record(row):
+        return {"B": row["B"], "C": row["C"], "D": row["D"], "ms": row["kernel_ms"],
+                "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+                "bound_ms": row["bound_ms"], "bound_tc_ms": row["bound_tc_ms"]}
+
     if deep_row is not None:
-        entry["deep"] = {"B": deep_row["B"], "C": deep_row["C"], "D": deep_row["D"],
-                         "ms": deep_row["kernel_ms"], "plain_ms": deep_row["plain_ms"],
-                         "library_ms": deep_row["library_ms"], "bound_ms": deep_row["bound_ms"],
-                         "bound_tc_ms": deep_row["bound_tc_ms"]}
+        entry["deep"] = record(deep_row)
+    if more_rows:
+        entry["shapes"] = [record(r) for r in more_rows]
     return entry
 
 
@@ -2851,8 +2920,8 @@ def main():
     args = sys.argv[1:]
     timing_root = None
     if args:
-        if args[0] != "--fwd-times" or len(args) > 2:
-            print("usage: chip_smoke.py [--fwd-times [ROOT]]", file=sys.stderr)
+        if args[0] != "--deep-times" or len(args) > 2:
+            print("usage: chip_smoke.py [--deep-times [ROOT]]", file=sys.stderr)
             return 2
         timing_root = os.path.abspath(args[1] if len(args) > 1 else ROOT)
     sys.path.insert(0, timing_root or ROOT)
@@ -2864,7 +2933,7 @@ def main():
         return 1
     if timing_root is not None:
         try:
-            fwd_times(torch, phase_env(torch), timing_root)
+            deep_times(torch, phase_env(torch), timing_root)
         except SmokeFailure as exc:
             print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
             return 1
@@ -2872,7 +2941,7 @@ def main():
     try:
         smi_line = phase_env(torch)
         phase_build()
-        rows, bwd_rows, wide_launches = phase_kernel(torch, smi_line)
+        rows, bwd_rows, wide_launches, _ = phase_kernel(torch, smi_line)
         launches = phase_slice(torch, smi_line)
         train_launches = phase_train(torch, smi_line)
         corpus_launches = phase_corpus(torch, smi_line)
@@ -2884,49 +2953,74 @@ def main():
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     # each kernel's time at its main path's shape: the slice's eval batch for
-    # the forward, the train step's for the backward
+    # the forward, the train step's for the backward; then one entry for each
+    # deeper route, with the launches of the wide paths by route
+    def by_route(kernel, route, widths):
+        return {f"train_d{D}": wide_launches[D][f"{kernel}_routes"][route] for D in widths}
+
+    def timed(rows_, case):
+        return next(r for r in rows_ if r["case"] == case)
+
+    fwd_src, fwd_tpu = "pkr_tpu_torch/csrc/flash_aam_fwd.cu", "pkr_tpu/ops/flash_aam.py:53"
+    bwd_src, bwd_tpu = "pkr_tpu_torch/csrc/flash_aam_bwd.cu", "pkr_tpu/ops/flash_aam.py:197"
+    fwd_errs, bwd_errs = ("max_abs_err_lse", "max_abs_err_zy"), ("max_abs_err_de",
+                                                                   "max_abs_err_dw")
     kernels = [
-        _kernel_entry("flash_aam_fwd", "pkr_tpu_torch/csrc/flash_aam_fwd.cu",
-                      "pkr_tpu/ops/flash_aam.py:53",
+        _kernel_entry("flash_aam_fwd", fwd_src, fwd_tpu,
                       {"slice": launches["flash_aam_fwd"],
                        "train": train_launches["flash_aam_fwd"],
-                       "train_d512": wide_launches[512]["flash_aam_fwd"],
-                       "train_d1024": wide_launches[1024]["flash_aam_fwd"],
+                       **{f"train_d{D}": wide_launches[D]["flash_aam_fwd"]
+                          for D in wide_launches},
                        "corpus": corpus_launches["flash_aam_fwd"],
                        "recipe": recipe_launches["flash_aam_fwd"],
                        "zoo": zoo_launches["flash_aam_fwd"],
                        "parallel": parallel_launches["flash_aam_fwd"]},
-                      rows, rows[0], ("max_abs_err_lse", "max_abs_err_zy")),
-        _kernel_entry("flash_aam_bwd", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
-                      "pkr_tpu/ops/flash_aam.py:197",
+                      rows, rows[0], fwd_errs),
+        _kernel_entry("flash_aam_bwd", bwd_src, bwd_tpu,
                       {"train": train_launches["flash_aam_bwd"],
-                       "train_d512": wide_launches[512]["flash_aam_bwd"],
-                       "train_d1024": wide_launches[1024]["flash_aam_bwd"],
+                       **{f"train_d{D}": wide_launches[D]["flash_aam_bwd"]
+                          for D in wide_launches},
                        "corpus": corpus_launches["flash_aam_bwd"],
                        "recipe": recipe_launches["flash_aam_bwd"],
                        "zoo": zoo_launches["flash_aam_bwd"],
                        "parallel": parallel_launches["flash_aam_bwd"]},
-                      bwd_rows, bwd_rows[0], ("max_abs_err_de", "max_abs_err_dw"),
-                      deep_row=next(r for r in bwd_rows if r["case"] == "train_b256_d512")),
-        # the forward's cluster route (256 < D <= 2048), timed at 100 x
-        # 7001 x 1024 and launched on the 512- and 1024-wide train paths
-        _kernel_entry("fwd_cluster_kernel", "pkr_tpu_torch/csrc/flash_aam_fwd.cu",
-                      "pkr_tpu/ops/flash_aam.py:53",
-                      {f"train_d{D}": wide_launches[D]["flash_aam_fwd_routes"]["cluster"]
-                       for D in (512, 1024)},
-                      [r for r in rows if 256 < r["D"] <= 2048],
-                      next(r for r in rows if r["case"] == "ragged_d1024"),
-                      ("max_abs_err_lse", "max_abs_err_zy"),
-                      deep_row=next(r for r in rows if r["case"] == "train_b256_d1024")),
-        # the backward's cluster route (512 < D <= 2048), timed at 100 x
-        # 7001 x 1024 and launched on the 1024-wide train path
-        _kernel_entry("bwd_cluster_kernel", "pkr_tpu_torch/csrc/flash_aam_bwd.cu",
-                      "pkr_tpu/ops/flash_aam.py:197",
-                      {"train_d1024": wide_launches[1024]["flash_aam_bwd_routes"]["cluster"]},
-                      [r for r in bwd_rows if 512 < r["D"] <= 2048],
-                      next(r for r in bwd_rows if r["case"] == "ragged_d1024"),
-                      ("max_abs_err_de", "max_abs_err_dw"),
-                      deep_row=next(r for r in bwd_rows if r["case"] == "train_b256_d1024"))]
+                      bwd_rows, bwd_rows[0], bwd_errs,
+                      deep_row=timed(bwd_rows, "train_b256_d512")),
+        # the forward's cluster route (256 < D <= 4096), timed at 100 x
+        # 7001 x 1024 and launched on the 512-, 1024- and 4096-wide train
+        # paths; past the portable cluster size at 2304 and 4096
+        _kernel_entry("fwd_cluster_kernel", fwd_src, fwd_tpu,
+                      by_route("flash_aam_fwd", "cluster", (512, 1024, 4096)),
+                      [r for r in rows if 256 < r["D"] <= 4096], timed(rows, "ragged_d1024"),
+                      fwd_errs, deep_row=timed(rows, "train_b256_d1024"),
+                      more_rows=[timed(rows, "ragged_d2304"), timed(rows, "b256_d4096")]),
+        # the forward's chunked route (D > 4096), timed at 100 x 7001 x 4608;
+        # no path is that wide
+        _kernel_entry("fwd_chunks_kernel", fwd_src, fwd_tpu,
+                      by_route("flash_aam_fwd", "chunks", wide_launches),
+                      [r for r in rows if r["D"] > 4096], timed(rows, "ragged_d4608"), fwd_errs),
+        # the backward's wide route (256 < D <= 512), timed at 256 x 7325 x
+        # 512 and launched on the 512-wide train path
+        _kernel_entry("bwd_wide_kernel", bwd_src, bwd_tpu,
+                      by_route("flash_aam_bwd", "wide", (512,)),
+                      [r for r in bwd_rows if 256 < r["D"] <= 512],
+                      timed(bwd_rows, "train_b256_d512"), bwd_errs,
+                      more_rows=[timed(bwd_rows, "ragged_d300")]),
+        # the backward's cluster route (512 < D <= 4096), timed at 100 x
+        # 7001 x 1024 and launched on the 1024- and 4096-wide train paths;
+        # past the portable cluster size at 2304 and 4096
+        _kernel_entry("bwd_cluster_kernel", bwd_src, bwd_tpu,
+                      by_route("flash_aam_bwd", "cluster", (1024, 4096)),
+                      [r for r in bwd_rows if 512 < r["D"] <= 4096],
+                      timed(bwd_rows, "ragged_d1024"), bwd_errs,
+                      deep_row=timed(bwd_rows, "train_b256_d1024"),
+                      more_rows=[timed(bwd_rows, "ragged_d2304"), timed(bwd_rows, "b256_d4096")]),
+        # the backward's chunked route (D > 4096), timed at 100 x 7001 x
+        # 4608; no path is that wide
+        _kernel_entry("bwd_chunks_kernel", bwd_src, bwd_tpu,
+                      by_route("flash_aam_bwd", "chunks", wide_launches),
+                      [r for r in bwd_rows if r["D"] > 4096], timed(bwd_rows, "ragged_d4608"),
+                      bwd_errs)]
     emit({"kernels": kernels})
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

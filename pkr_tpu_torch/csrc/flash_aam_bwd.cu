@@ -80,21 +80,28 @@
 //     tried on an H100 and left out, both spilling without a clear gain:
 //     16 warps of one slab each (128 registers a thread), and a cosine
 //     that exchanges all its chunks at one barrier (255); see PERF.md.
-//   WMAX < D <= CMAX (2048): bwd_cluster_kernel (dw_cluster_block,
+//   WMAX < D <= CMAX (4096): bwd_cluster_kernel (dw_cluster_block,
 //     de_cluster_block).  Three full-depth tiles no longer fit one block,
 //     nor a 32 x D accumulator its registers, so a thread-block cluster of
-//     n_s = n_slices(D) blocks (at most 8, the portable size) splits the
-//     depth into SW = 256-wide slices: each block is a tiles-route block of
-//     depth 256 on its slice (the stationary tile resident, the streamed
-//     ones through one buffer, a 32 x 256 accumulator, warp w on the
-//     slice's depths [32 w, 32 w + 32)).  Only the cosine needs the whole
-//     depth: each block forms its two chunks' cosine_dots (and tile_sq for
-//     the norms) and publishes them unsummed in its shared memory; after a
-//     cluster barrier every block adds all n_chunks(D) partials, read
-//     through distributed shared memory, in chunk order, which is
-//     chunked_cosine's sum, so every block forms the same a tile with the
-//     forward's bits.  Each pass
-//     forms each cosine tile once (8*B*C*D over both passes).  The exchange
+//     n_s = n_slices(D) blocks (2 to 16: up to 8, the portable size, to
+//     CPORT = 2048; 9 to 16, Hopper's non-portable sizes, which the kernel
+//     is allowed before its launch, allow_cluster) splits the depth into
+//     SW = 256-wide slices: each block is a tiles-route block of depth 256
+//     on its slice (the stationary tile resident, the streamed ones through
+//     one buffer, a 32 x 256 accumulator, warp w on the slice's depths
+//     [32 w, 32 w + 32)).  Only the cosine needs the whole depth: each
+//     block forms its two chunks' cosine_dots (and tile_sq for the norms)
+//     and publishes them unsummed in its shared memory; after a cluster
+//     barrier every block adds all n_chunks(D) partials, read through
+//     distributed shared memory, in chunk order, which is chunked_cosine's
+//     sum, so every block forms the same a tile with the forward's bits.
+//     That exchange reads 2 n_s float4 a thread a tile: past the portable
+//     size it sets the pace (a layout that kept it lost to the library at
+//     D = 2304 on an H100; see PERF.md), so there (SHARE) each block forms
+//     the a values of its 1/n_s share of the tile only and, after a second
+//     cluster barrier, reads the whole a tile back ("a tile step's
+//     exchange" below): the same a tile, the same bits.  Each pass forms
+//     each cosine tile once (8*B*C*D over both passes).  The exchange
 //     buffers alternate between tiles, so one barrier a tile suffices: a
 //     block rewrites a buffer only past the barrier that its peers reach
 //     after reading it.  dW's projection is each slice's sum added over the
@@ -105,12 +112,13 @@
 //     the streamed tiles take one buffer, not two, which brings a block to
 //     94 KB and puts two blocks on each SM, one running while the other
 //     waits (a layout with two buffers at one block an SM was slower on an
-//     H100 at every shape timed; see PERF.md).  The de pass's splits are
-//     sized by the clusters that the card holds at once
-//     (flash_aam_bwd_clusters), and its clusters come first in the grid.
+//     H100 at every shape timed; see PERF.md).  A cluster of 16 then takes
+//     8 SMs of one GPC.  The de pass's splits are sized by the clusters
+//     that the card holds at once (flash_aam_bwd_clusters), and its
+//     clusters come first in the grid.
 //   D > CMAX: bwd_chunks_kernel (dw_chunks_block, de_chunks_block).  A
-//     cluster would exceed the portable size, so the cosine tiles stream the
-//     depth through chunked_cosine and the second products run over
+//     cluster would exceed Hopper's largest (16), so the cosine tiles stream
+//     the depth through chunked_cosine and the second products run over
 //     256-wide output chunks, recomputing the cosine tiles for each; two
 //     blocks an SM, as the tiles kernel.
 //
@@ -613,24 +621,108 @@ __device__ __forceinline__ void de_wide_block(float* smem, int row_tile, int spl
 // unused): two slice tiles (the stationary one and one buffer for the
 // streamed tiles), the a tile's parts, rinv, projection scratch, two cosine
 // exchange buffers, and what the block publishes to its peers: two buffers
-// of two chunks' partials, two of two chunks' sums of squares, and its
-// slice's share of the projection.  96,096 bytes: two blocks an SM.
+// of two chunks' partials (past CPORT, one of them and its share of the a
+// tile), two of two chunks' sums of squares, and its slice's share of the
+// projection.  96,096 bytes: two blocks an SM.
 __host__ __device__ inline int cluster_smem_floats() {
   return 2 * 2 * TB * KC + 2 * TB * TC + TC + WARPS * TC + 2 * WARPS * 128 +
          2 * 2 * THREADS * 4 + 2 * 2 * TC + TC;
+}
+
+// Past CPORT (SHARE), a tile step exchanges shares (flash_aam_cosine.cuh:
+// logit_share).  Each block publishes its two chunks' cosine partials
+// (slice_partials); past cluster barrier A, each forms the a value of its
+// share's slots only (cluster_logit_dot, then dlogit) and publishes it
+// split into its TF32 parts (publish_a_share); past barrier B, each reads
+// the whole a tile back (gather_a_tile) for its slice's second product.  A
+// block so reads TB TC (n_ch / n_s + 2) floats of its peers a tile, not
+// the TB TC n_ch of forming the whole tile itself, for a second barrier.
+// One buffer of partials suffices: a block rewrites it only past the B
+// barrier, which its peers reach after reading it; and its a share only
+// past the next A barrier, which they reach after reading that.  Its
+// blocks hold their 32 x 256 accumulators through the exchange, in the 128
+// registers of two blocks an SM, so they keep XB_BWD reads in flight, not
+// XB, and load the row data after the dots.
+constexpr int XB_BWD = XB / 2;
+//
+// The batch row (rows row0 + slot_row) of the thread's slot of share sh:
+// validity (a slot of the share, in B), label, lse and g.
+struct ShareRow {
+  bool ok;
+  int lab;
+  float lse, g;
+};
+
+__device__ __forceinline__ ShareRow share_row(const Share& sh, const int* __restrict__ labels,
+                                              const float* __restrict__ lse,
+                                              const float* __restrict__ g, int B, int row0) {
+  const int s = share_slot(sh);
+  const int r = row0 + slot_row(s % (TB * TC));
+  const bool ok = s < sh.i1 && r < B;
+  return {ok, ok ? labels[r] : 0, ok ? lse[r] : 0.0f, ok ? g[r] : 0.0f};
+}
+
+// a of the thread's slot of share sh (class col0 + slot_col) from its dot
+// and rinv, as a_tile forms it (0 outside B and C; SCALE folds 1/||w||
+// in), published as its TF32 parts: big at apub[s - i0], small at
+// apub[SHARE_MAX + s - i0].
+template <bool SCALE>
+__device__ __forceinline__ void publish_a_share(float dot, const Share& sh, const ShareRow& sr,
+                                                const float* rinv, int C, int col0,
+                                                const Margin& mg, float* apub) {
+  const int s = share_slot(sh);
+  if (s >= sh.i1) return;
+  const int cls = slot_col(s);
+  const int c = col0 + cls;
+  float a = 0.0f;
+  if (sr.ok && c < C) {
+    const float ri = rinv[cls];
+    a = dlogit(__fmul_rn(dot, ri), c == sr.lab, sr.lse, sr.g, mg);
+    if (SCALE) a = __fmul_rn(a, ri);
+  }
+  const tf32x3::Split sp = tf32x3::split(a);
+  apub[s - sh.i0] = __uint_as_float(sp.big);
+  apub[SHARE_MAX + s - sh.i0] = __uint_as_float(sp.small);
+}
+
+// The whole a tile from the shares the cluster published (publish_a_share;
+// slot s in block s / L's share), into the swizzled at_big[row][class] and
+// at_small[row][class], half of a thread's slots at a time (XB_BWD reads in
+// flight).  The caller syncs before reading them.
+__device__ __forceinline__ void gather_a_tile(const float* apub, int n_s, float* at_big,
+                                              float* at_small) {
+  constexpr int M = TB * TC / THREADS / 2;
+  const int L = (TB * TC + n_s - 1) / n_s;
+#pragma unroll 1
+  for (int half = 0; half < 2; ++half) {
+    float big[M], small[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int s = (int)threadIdx.x + THREADS * (2 * m + half);
+      const int r = s / L;
+      big[m] = cluster_ld(apub + (s - r * L), r);
+      small[m] = cluster_ld(apub + SHARE_MAX + (s - r * L), r);
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int s = (int)threadIdx.x + THREADS * (2 * m + half);
+      at_big[at(slot_row(s), slot_col(s), TC)] = big[m];
+      at_small[at(slot_row(s), slot_col(s), TC)] = small[m];
+    }
+  }
 }
 
 // The dW pass for WMAX < D <= CMAX, one cluster per TC-class tile.  Each
 // block keeps its slice of the W tile, streams e's batch tiles at its
 // slice through one buffer (the next tile's copy starts once every warp is
 // done with the current one; the SM's other block runs meanwhile), and
-// accumulates dw_hat over its slice in registers; for each
-// batch tile the cluster exchanges the chunks' cosine partials (and, with
-// the first, the sums of squares for 1/||w||) so that every block forms the
-// whole a tile.  The projection dw_hat . w_hat is each slice's sum (the
-// lanes of a class, then the warps in order) added over the slices in
-// slice order, then each block writes its slice of dW once.
-template <int VEC>
+// accumulates dw_hat over its slice in registers; for each batch tile the
+// cluster exchanges the chunks' cosine partials (and, with the first, the
+// sums of squares for 1/||w||) so that every block forms the whole a tile
+// (past CPORT, share by share).  The projection dw_hat . w_hat is each
+// slice's sum (the lanes of a class, then the warps in order) added over
+// the slices in slice order, then each block writes its slice of dW once.
+template <int VEC, bool SHARE>
 __device__ __forceinline__ void dw_cluster_block(float* smem, int tile, int slice,
                                                  const float* __restrict__ e,
                                                  const float* __restrict__ w,
@@ -650,6 +742,7 @@ __device__ __forceinline__ void dw_cluster_block(float* smem, int tile, int slic
   float* pub = xch + 2 * WARPS * 128;                // [2][2][THREADS][4], published
   float* sqp = pub + 2 * 2 * THREADS * 4;            // [2][TC], published once
   float* projx = sqp + 2 * 2 * TC;                   // [TC], published
+  float* apub = pub + 2 * THREADS * 4;               // SHARE: [2][SHARE_MAX], published
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -661,6 +754,7 @@ __device__ __forceinline__ void dw_cluster_block(float* smem, int tile, int slic
   const int d0 = slice * SW + 32 * warp;   // this warp's first depth
   const bool has_cols = d0 < D;
   const float* wslab = ws + (warp >> 2) * TC * KC;
+  const Share sh = SHARE ? logit_share(slice, n_s) : Share{0, 0};
 
   stage_slice<VEC>(ws, w, col0, C, D, slice);
   stage_slice<VEC>(es, e, 0, B, D, slice);
@@ -674,19 +768,32 @@ __device__ __forceinline__ void dw_cluster_block(float* smem, int tile, int slic
     tf32x3::wait_pending<0>();
     __syncthreads();  // tile bt has landed
     // buffer bt % 2 is free: every peer read it at tile bt - 2 before it
-    // arrived at tile bt - 1's barrier, which this block has passed
-    float* pb = pub + (bt & 1) * 2 * THREADS * 4;
+    // arrived at tile bt - 1's barrier, which this block has passed (SHARE:
+    // buffer 0, see above)
+    float* pb = SHARE ? pub : pub + (bt & 1) * 2 * THREADS * 4;
     slice_partials(es, ws, k0, n_ch, xch, pb);
     cluster_arrive();
-    const Rows rd = row_data(labels, lse, g, B, bt * TB);
-    cluster_wait();
-    if (bt == 0) {
-      cluster_rnorms(sqp, n_ch, rinv);
-      __syncthreads();
+    if constexpr (SHARE) {
+      cluster_wait();  // A: every block's partials
+      if (bt == 0) cluster_rnorms_tail<XB_BWD>(sqp, n_ch, rinv);  // every class's
+      const float dot = cluster_logit_dot<XB_BWD>(pb, sh, n_ch);
+      const ShareRow sr = share_row(sh, labels, lse, g, B, bt * TB);
+      if (bt == 0) __syncthreads();  // rinv
+      publish_a_share<false>(dot, sh, sr, rinv, C, col0, mg, apub);
+      cluster_arrive();
+      cluster_wait();  // B: every block's a share
+      gather_a_tile(apub, n_s, at_big, at_small);
+    } else {
+      const Rows rd = row_data(labels, lse, g, B, bt * TB);
+      cluster_wait();
+      if (bt == 0) {
+        cluster_rnorms(sqp, n_ch, rinv);
+        __syncthreads();
+      }
+      float dot[4];
+      cluster_dot(dot, pb, n_ch);
+      a_tile<false>(dot, rinv, rd, C, col0, mg, at_big, at_small);
     }
-    float dot[4];
-    cluster_dot(dot, pb, n_ch);
-    a_tile<false>(dot, rinv, rd, C, col0, mg, at_big, at_small);
     __syncthreads();
     if (has_cols)
       tf32x3::warp_mma_k32<K_ROWS>(acc, at_big, at_small, es + (warp >> 2) * TB * KC, KC,
@@ -767,8 +874,9 @@ __device__ __forceinline__ void dw_cluster_block(float* smem, int tile, int slic
 // split): each block keeps its slice of the e tile, streams its split's W
 // tiles at its slice through one buffer as the dW pass streams e's, and
 // writes part[split]'s depths of its slice; for each class tile the
-// cluster exchanges the cosine partials and the sums of squares.
-template <int VEC>
+// cluster exchanges the cosine partials and the sums of squares (past
+// CPORT, the a tile share by share).
+template <int VEC, bool SHARE>
 __device__ __forceinline__ void de_cluster_block(float* smem, int row_tile, int split, int slice,
                                                  const float* __restrict__ e,
                                                  const float* __restrict__ w,
@@ -786,6 +894,7 @@ __device__ __forceinline__ void de_cluster_block(float* smem, int row_tile, int 
   float* xch = rinv + TC + WARPS * TC;               // [2][WARPS][4][32]
   float* pub = xch + 2 * WARPS * 128;                // [2][2][THREADS][4], published
   float* sqp = pub + 2 * 2 * THREADS * 4;            // [2][2][TC], published
+  float* apub = pub + 2 * THREADS * 4;               // SHARE: [2][SHARE_MAX], published
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -797,6 +906,8 @@ __device__ __forceinline__ void de_cluster_block(float* smem, int row_tile, int 
   const int k0 = 2 * slice;
   const int d0 = slice * SW + 32 * warp;
   const bool has_cols = d0 < D;
+  const int n_s = n_slices(D);
+  const Share sh = SHARE ? logit_share(slice, n_s) : Share{0, 0};
 
   stage_slice<VEC>(es, e, row0, B, D, slice);
   stage_slice<VEC>(wt, w, tile_lo * TC, C, D, slice);
@@ -808,20 +919,34 @@ __device__ __forceinline__ void de_cluster_block(float* smem, int row_tile, int 
     tf32x3::wait_pending<0>();
     __syncthreads();  // tile t has landed
     // buffer cur is free, as in the dW pass
-    float* pb = pub + cur * 2 * THREADS * 4;
+    float* pb = SHARE ? pub : pub + cur * 2 * THREADS * 4;
     float* sb = sqp + cur * 2 * TC;
     slice_partials(es, wt, k0, n_ch, xch, pb);
     slice_sq(wt, k0, n_ch, sb);
     cluster_arrive();
-    // loaded for every tile, so that it holds no register across the cosine
-    // (two blocks an SM leave 128 a thread)
-    const Rows rd = row_data(labels, lse, g, B, row0);
-    cluster_wait();
-    cluster_rnorms(sb, n_ch, rinv);
-    float dot[4];
-    cluster_dot(dot, pb, n_ch);
-    __syncthreads();  // rinv
-    a_tile<true>(dot, rinv, rd, C, t * TC, mg, at_big, at_small);
+    if constexpr (SHARE) {
+      cluster_wait();  // A: every block's partials
+      cluster_rnorms_tail<XB_BWD>(sb, n_ch, rinv);
+      const float dot = cluster_logit_dot<XB_BWD>(pb, sh, n_ch);
+      // loaded for every tile, so that it holds no register across the
+      // cosine (two blocks an SM leave 128 a thread)
+      const ShareRow sr = share_row(sh, labels, lse, g, B, row0);
+      __syncthreads();  // rinv
+      publish_a_share<true>(dot, sh, sr, rinv, C, t * TC, mg, apub);
+      cluster_arrive();
+      cluster_wait();  // B: every block's a share
+      gather_a_tile(apub, n_s, at_big, at_small);
+    } else {
+      // loaded for every tile, so that it holds no register across the
+      // cosine (two blocks an SM leave 128 a thread)
+      const Rows rd = row_data(labels, lse, g, B, row0);
+      cluster_wait();
+      cluster_rnorms(sb, n_ch, rinv);
+      float dot[4];
+      cluster_dot(dot, pb, n_ch);
+      __syncthreads();  // rinv
+      a_tile<true>(dot, rinv, rd, C, t * TC, mg, at_big, at_small);
+    }
     __syncthreads();
     if (has_cols)
       tf32x3::warp_mma_k32<MK_ROWS>(acc, at_big, at_small, wt + (warp >> 2) * TC * KC, KC,
@@ -1071,8 +1196,9 @@ bwd_wide_kernel(const float* __restrict__ e, const float* __restrict__ w,
 // split) u, the rest the dW pass on class tile u - n_de.  A de cluster
 // walks a whole split and a dW cluster only the batch tiles, so the long
 // ones start first and the short ones fill the SMs around them.  Two
-// blocks an SM.
-template <int VEC>
+// blocks an SM.  SHARE (clusters past the portable size) exchanges the
+// cosines share by share.
+template <int VEC, bool SHARE>
 __global__ void __launch_bounds__(THREADS, 2)
 bwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
                    const int* __restrict__ labels, const float* __restrict__ lse,
@@ -1085,10 +1211,11 @@ bwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
   const int slice = cluster_rank();
   if (unit < n_de) {
     const int n_rt = (B + TB - 1) / TB;
-    de_cluster_block<VEC>(smem, unit % n_rt, unit / n_rt, slice, e, w, labels, lse, g, B, C,
-                          D, tiles_per_split, mg, part);
+    de_cluster_block<VEC, SHARE>(smem, unit % n_rt, unit / n_rt, slice, e, w, labels, lse, g,
+                                 B, C, D, tiles_per_split, mg, part);
   } else {
-    dw_cluster_block<VEC>(smem, unit - n_de, slice, e, w, labels, lse, g, B, C, D, mg, dw);
+    dw_cluster_block<VEC, SHARE>(smem, unit - n_de, slice, e, w, labels, lse, g, B, C, D, mg,
+                                 dw);
   }
 }
 
@@ -1122,7 +1249,9 @@ __global__ void bwd_de_sum_kernel(const float* __restrict__ part, int n_splits,
 }
 
 // The route's kernel for depth D and its dynamic shared memory, with the
-// kernel allowed that much.
+// kernel allowed that much (and, on the cluster route, its cluster size).
+// Every launch and every occupancy query of this instantiation calls it
+// first.
 template <int VEC>
 cudaError_t route(int D, const void** kernel, size_t* smem) {
   if (D <= DMAX) {
@@ -1135,7 +1264,10 @@ cudaError_t route(int D, const void** kernel, size_t* smem) {
     *kernel = reinterpret_cast<const void*>(bwd_wide_kernel<VEC>);
   } else if (D <= CMAX) {
     *smem = sizeof(float) * cluster_smem_floats();
-    *kernel = reinterpret_cast<const void*>(bwd_cluster_kernel<VEC>);
+    *kernel = D > CPORT ? reinterpret_cast<const void*>(bwd_cluster_kernel<VEC, true>)
+                        : reinterpret_cast<const void*>(bwd_cluster_kernel<VEC, false>);
+    const cudaError_t err = allow_cluster(*kernel, D);
+    if (err != cudaSuccess) return err;
   } else {
     // the dW pass's layout again (the de pass's has no projection scratch)
     *smem = sizeof(float) * (2 * (TB + TC) * KC + TB * OC + 2 * TB * TC + TC + WARPS * TC + TC +
@@ -1167,8 +1299,10 @@ cudaError_t launch(const float* e, const float* w, const int* labels, const floa
     // a refused cluster launch returns its error: no other route stands in
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(D, blocks, smem, st, &attr);
-    err = cudaLaunchKernelEx(&cfg, bwd_cluster_kernel<VEC>, e, w, labels, lse, g, B, C, D,
-                             tiles_per_split, mg, part, dw);
+    err = D > CPORT ? cudaLaunchKernelEx(&cfg, bwd_cluster_kernel<VEC, true>, e, w, labels, lse,
+                                         g, B, C, D, tiles_per_split, mg, part, dw)
+                    : cudaLaunchKernelEx(&cfg, bwd_cluster_kernel<VEC, false>, e, w, labels, lse,
+                                         g, B, C, D, tiles_per_split, mg, part, dw);
     if (err != cudaSuccess) return err;
   } else {
     bwd_chunks_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D,
@@ -1207,7 +1341,7 @@ int flash_aam_bwd_clusters(int D) {
   cudaLaunchAttribute attr;
   if (D <= WMAX || D > CMAX || route<4>(D, &kernel, &smem) != cudaSuccess) return -1;
   const cudaLaunchConfig_t cfg = cluster_config(D, 1, smem, nullptr, &attr);
-  if (cudaOccupancyMaxActiveClusters(&clusters, bwd_cluster_kernel<4>, &cfg) != cudaSuccess)
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess)
     return -1;
   return clusters;
 }

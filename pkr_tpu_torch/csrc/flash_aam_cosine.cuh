@@ -25,7 +25,13 @@
 // publishes its chunks' cosine_dots and tile_sq unsummed (slice_partials,
 // slice_sq), and a block that needs the cosine tile adds all the cluster's
 // in chunk order through distributed shared memory (cluster_dot,
-// cluster_rnorms), which gives chunked_cosine's bits.
+// cluster_rnorms; past CPORT, each block its share of the tile:
+// cluster_logit_dot, cluster_rnorms_tail), which gives chunked_cosine's
+// bits.  A block's shared
+// memory does not depend on the cluster's size, so the same blocks run in
+// clusters of up to CLUSTER_MAX (16): past the portable size (8, to
+// CPORT = 2048 deep) the kernel must be allowed a non-portable cluster
+// (allow_cluster).
 #pragma once
 
 #include "flash_aam_common.cuh"
@@ -199,8 +205,11 @@ __device__ __forceinline__ void resident_cosine(float (&dot)[4], const float* es
 
 // ---- thread-block clusters (WMAX < D <= CMAX) ----
 
-constexpr int SW = 2 * KC;    // the depth of one block's slice
-constexpr int CMAX = 8 * SW;  // the portable cluster size (8) times SW
+constexpr int SW = 2 * KC;                  // the depth of one block's slice
+constexpr int CLUSTER_PORTABLE = 8;         // the cluster size every card launches
+constexpr int CLUSTER_MAX = 16;             // Hopper's largest, non-portable, cluster
+constexpr int CPORT = CLUSTER_PORTABLE * SW;  // 2048: the deepest portable cluster
+constexpr int CMAX = CLUSTER_MAX * SW;        // 4096: the cluster routes' deepest rows
 
 __host__ __device__ inline int n_slices(int D) { return (D + SW - 1) / SW; }
 
@@ -220,6 +229,17 @@ inline cudaLaunchConfig_t cluster_config(int D, int clusters, size_t smem, cudaS
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// Allow `kernel` (one instantiation of a cluster route's kernel) the
+// clusters of depth D.  Past CPORT they are larger than the portable size:
+// both a launch and cudaOccupancyMaxActiveClusters refuse such a cluster
+// unless the kernel has cudaFuncAttributeNonPortableClusterSizeAllowed, so
+// the route sets it before either.  The error, if any, is the caller's to
+// return: no other route stands in.
+inline cudaError_t allow_cluster(const void* kernel, int D) {
+  if (D <= CPORT) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
 }
 
 // The split barrier of the whole cluster: every thread of every block
@@ -314,6 +334,110 @@ __device__ __forceinline__ void cluster_rnorms(const float* sq, int n_ch, float*
     s = k ? __fadd_rn(s, v) : v;
   }
   rinv[threadIdx.x] = __frsqrt_rn(fmaxf(s, 1e-24f));
+}
+
+// ---- past the portable size: a tile's cosines shared out ----
+//
+// Up to CLUSTER_PORTABLE blocks, every block (or, in the forward, the
+// tile's owner block) forms the whole cosine tile from all n_ch partials
+// (cluster_dot), reading 2 n_s float4 a thread a tile.  Past it that
+// exchange sets the pace (its bytes grow with n_s), so each block forms
+// only its share of the tile: the logits of the published slots s in
+// [i0, i1), i0 = slice L, L = ceil(TB TC / n_s) (at most SHARE_MAX, one
+// slot a thread), a chunk's partials lying in cosine_dots' layout (slot
+// 4 (32 w + lane) + 2 h + q holds thread 32 w + lane's dot[2 h + q];
+// slot_row, slot_col), so that a warp reads 128 contiguous bytes of a
+// peer.  Each cosine adds its n_ch partials, one float from each chunk's
+// block, in chunk order (cluster_logit_dot), XB reads at a time (fewer in
+// the backward, whose blocks also hold their accumulators): a block
+// reads TB TC n_ch / n_s floats a tile, not TB TC n_ch.  The last warp,
+// which holds no slot, forms the norms meanwhile (cluster_rnorms_tail).
+constexpr int XB = 8;
+constexpr int SHARE_MAX = (TB * TC + CLUSTER_PORTABLE) / (CLUSTER_PORTABLE + 1);
+
+static_assert(SHARE_MAX <= THREADS - 32, "one slot a thread, the last warp free");
+
+// The float at p's counterpart in the shared memory of the cluster's block
+// `rank`, read through its 32-bit shared::cluster address (cluster_map's
+// generic address takes two registers, and a share keeps XB reads in
+// flight).
+__device__ __forceinline__ float cluster_ld(const float* p, int rank) {
+  uint32_t a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(tf32x3::smem_addr(p)), "r"(rank));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// Hand add(k, v) the floats ld(k), k = 0 .. n - 1, in order, each read
+// from a peer (cluster_ld) N at a time: each group's reads are all issued
+// before its first add, so their latencies overlap while the adds keep
+// their order.
+template <int N, typename Ld, typename Add>
+__device__ __forceinline__ void cluster_gather(int n, Ld ld, Add add) {
+  for (int k0 = 0; k0 < n; k0 += N) {
+    float v[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (k0 + i < n) v[i] = ld(k0 + i);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      if (k0 + i < n) add(k0 + i, v[i]);
+  }
+}
+
+struct Share {
+  int i0, i1;
+};
+
+// Block `slice`'s share for a cluster of n_s > CLUSTER_PORTABLE blocks.
+__device__ __forceinline__ Share logit_share(int slice, int n_s) {
+  const int L = (TB * TC + n_s - 1) / n_s;
+  return {slice * L, min(slice * L + L, TB * TC)};
+}
+
+// The thread's slot of share sh: past i1 for a thread that holds none.
+__device__ __forceinline__ int share_slot(const Share& sh) { return sh.i0 + (int)threadIdx.x; }
+
+// The tile row and class of published slot s < TB TC (cosine_dots' layout).
+__device__ __forceinline__ int slot_row(int s) {
+  const int t = s >> 2;
+  return 16 * ((t >> 5 & 3) >> 1) + ((t & 31) >> 2) + 8 * (s >> 1 & 1);
+}
+
+__device__ __forceinline__ int slot_col(int s) {
+  const int t = s >> 2;
+  return 8 * cosine_ntile(t >> 5) + 2 * (t & 3) + (s & 1);
+}
+
+// chunked_cosine's dot of the thread's slot of share sh from the partials
+// the cluster published (slice_partials: chunk k's in block k / 2's pub,
+// at (k % 2) THREADS 4 + s), added with __fadd_rn in chunk order; 0 for a
+// thread that holds no slot; N reads in flight.  Called between the
+// cluster barrier that follows every block's partials and the next one.
+template <int N = XB>
+__device__ __forceinline__ float cluster_logit_dot(const float* pub, const Share& sh, int n_ch) {
+  const int s = share_slot(sh);
+  float dot = 0.0f;
+  if (s >= sh.i1) return dot;
+  cluster_gather<N>(
+      n_ch, [&](int k) { return cluster_ld(pub + (k & 1) * THREADS * 4 + s, k >> 1); },
+      [&](int k, float v) { dot = k ? __fadd_rn(dot, v) : v; });
+  return dot;
+}
+
+// cluster_rnorms on the last warp (lane c writes rinv[c]), which holds no
+// slot of a share, N reads in flight; other threads see rinv after the
+// next __syncthreads.
+template <int N = XB>
+__device__ __forceinline__ void cluster_rnorms_tail(const float* sq, int n_ch, float* rinv) {
+  const int c = (int)threadIdx.x - (THREADS - TC);
+  if (c < 0) return;
+  float s = 0.0f;
+  cluster_gather<N>(
+      n_ch, [&](int k) { return cluster_ld(sq + (k & 1) * TC + c, k >> 1); },
+      [&](int k, float v) { s = k ? __fadd_rn(s, v) : v; });
+  rinv[c] = __frsqrt_rn(fmaxf(s, 1e-24f));
 }
 
 }  // namespace flash_aam

@@ -48,41 +48,49 @@
 // Three routes by depth, one launch each and then merge_kernel (launch):
 //   D <= DMAX (256): fwd_tiles_kernel, above.  The rows are padded to
 //     padded_depth(D) in shared memory with zeros.
-//   DMAX < D <= CMAX (2048): fwd_cluster_kernel.  Whole-depth e and W
+//   DMAX < D <= CMAX (4096): fwd_cluster_kernel.  Whole-depth e and W
 //     tiles no longer fit two blocks an SM, and streaming both through
-//     chunked_cosine
-//     re-stages the e chunks for every class tile and meets at a block-wide
-//     barrier every 128-deep chunk.  So a thread-block cluster of n_s =
-//     n_slices(D) blocks (at most 8, the portable size) takes one (batch
-//     tile, split) and splits the depth into SW = 256-wide slices, as the
-//     backward's cluster route does (flash_aam_bwd.cu: de_cluster_block).
-//     Block `slice` stages its slice of the e tile once, split into its
-//     TF32 parts in the order in which the MMAs read them, and streams its
-//     slice of the split's W tiles through one buffer: tile t + 1's copy
-//     starts as soon as every warp has read tile t, and is in flight
-//     through the cluster barrier and the fold.  For each tile every block
-//     forms its two chunks' cosine partials (each warp one 16 x 16 quadrant
-//     of one chunk, cosine_dots' sum) and their sums of squares and
-//     publishes them unsummed; after one cluster barrier the tile's owner,
-//     block (t - tile_lo) % n_s, adds all n_chunks(D) of them in chunk order
+//     chunked_cosine re-stages the e chunks for every class tile and meets
+//     at a block-wide barrier every 128-deep chunk.  So a thread-block
+//     cluster of n_s = n_slices(D) blocks (2 to 16; past CPORT = 2048, 9 to
+//     16, larger than the portable size, which the kernel is allowed before
+//     its launch, allow_cluster) takes one (batch tile, split) and splits
+//     the depth into SW = 256-wide slices, as the backward's cluster route
+//     does (flash_aam_bwd.cu: de_cluster_block).  Block `slice` stages its
+//     slice of the e tile once, split into its TF32 parts in the order in
+//     which the MMAs read them, and streams its slice of the split's W
+//     tiles through one buffer: tile t + 1's copy starts as soon as every
+//     warp has read tile t, and is in flight through the cluster barrier
+//     and the fold.  For each tile every block forms its two chunks'
+//     cosine partials (each warp one 16 x 16 quadrant of one chunk,
+//     cosine_dots' sum) and their sums of squares and publishes them
+//     unsummed; after one cluster barrier the tile's owner, block
+//     (t - tile_lo) % n_s, adds all n_chunks(D) of them in chunk order
 //     through distributed shared memory (cluster_dot, cluster_rnorms:
 //     chunked_cosine's bits, the backward's) and folds the tile.  So no e
 //     chunk is staged twice, the block meets its peers once a tile, the
 //     norms come from the published sums of squares, and each tile is
-//     folded once, not n_s times.  Every block writes its own partial state
-//     (an owner of no tile writes the empty one), and merge_kernel merges
-//     the n_splits * n_s of them in order.  The published buffers alternate
-//     between tiles, so one barrier a tile suffices: a block rewrites a
-//     buffer only past the barrier that the tile's owner reaches after
-//     reading it; every block ends at a cluster barrier, so none leaves
-//     while a peer may read its shared memory.  One W buffer keeps a block
-//     at 115,328 bytes, two blocks an SM: one runs while the other waits.
-//     What bounds the route is issuing instructions (the cosine's split of
-//     W, the copies' and loads' address arithmetic), so its block keeps
-//     them few (see "the cluster route" below).  The splits are sized by
-//     the clusters that the card holds at once (flash_aam_fwd_clusters).
-//   D > CMAX: fwd_chunks_kernel.  A cluster would exceed the portable size,
-//     so each block streams every class tile's cosines and norms in
+//     folded once, not n_s times.  Past the portable size the owner's
+//     reads (2 n_s float4 a thread) set the pace, so there (SHARE) every
+//     block folds its 1/n_s share of each tile instead (logit_share), a
+//     thread one slot (a layout with owners was slower there than the
+//     chunked route on an H100; see PERF.md).  Every block writes its own
+//     partial state (an owner of no tile, or of no slot, writes the empty
+//     one), and merge_kernel merges the n_splits * n_s of them in order.
+//     The published buffers alternate between tiles, so one barrier a tile
+//     suffices: a block rewrites a buffer only past the barrier that the
+//     tile's readers reach after reading it; every block ends at a cluster
+//     barrier, so none leaves while a peer may read its shared memory.  One
+//     W buffer keeps a block at 115,328 bytes, two blocks an SM: one runs
+//     while the other waits; a cluster of 16 takes 8 SMs of one GPC.  What
+//     bounds the route is issuing instructions (the cosine's split of W,
+//     the copies' and loads' address arithmetic), so its block keeps them
+//     few (see "the cluster route" below).  The splits are those whose
+//     last cluster ends first when the card runs them in grid order on the
+//     clusters that it holds at once (flash_aam_fwd_clusters; ops/
+//     flash_aam.py: _cluster_splits).
+//   D > CMAX: fwd_chunks_kernel.  A cluster would exceed Hopper's largest
+//     (16), so each block streams every class tile's cosines and norms in
 //     128-deep chunks of e and W through chunked_cosine, on the tiles
 //     kernel's blocks and epilogue.
 // Both deep routes form chunked_cosine's bits, which the backward forms on
@@ -499,11 +507,82 @@ __host__ __device__ inline int cluster_smem_floats() {
   return 2 * 2 * TB * KC + 2 * TC * KC + 2 * 2 * THREADS * 4 + 2 * 2 * TC + TC;
 }
 
+// Past CPORT (SHARE), each block folds its share of every tile
+// (flash_aam_cosine.cuh: logit_share), one slot a thread: the online state
+// of the slot's row (row0 + slot_row) over the tiles, with the row's label
+// and target logit (a row past B gets label -1 and its state is never
+// written; a thread that holds no slot keeps the empty state).
+struct ShareState {
+  int lab;
+  float ztr;
+  RowState st;
+};
+
+__device__ __forceinline__ ShareState share_state(const Share& sh,
+                                                  const int* __restrict__ labels,
+                                                  const float* __restrict__ zt, int B,
+                                                  int row0) {
+  const int r = row0 + slot_row(share_slot(sh) % (TB * TC));
+  return {r < B ? labels[r] : -1, r < B ? zt[r] : 0.0f, {NEG_INF, 0.0f, 0.0f, 0.0f}};
+}
+
+// Fold the thread's slot of class tile col0.. (its dot from
+// cluster_logit_dot, 1/||w|| from rinv) into its row's state, as fold_tile
+// folds.
+__device__ __forceinline__ void fold_share(ShareState& sx, float dot, const Share& sh,
+                                           const float* rinv, int col0, int C,
+                                           const Margin& mg) {
+  const int s = share_slot(sh);
+  if (s >= sh.i1) return;
+  const int cls = slot_col(s);
+  const int c = col0 + cls;
+  if (c >= C) return;
+  RowState& st = sx.st;
+  const bool is_tgt = c == sx.lab;
+  const float z = margined(__fmul_rn(dot, rinv[cls]), is_tgt, mg);
+  if (is_tgt) st.zy += z;
+  else if (z > sx.ztr) st.cnt += 1.0f;
+  if (z > st.m) {
+    st.s = st.s * expf(st.m - z) + 1.0f;
+    st.m = z;
+  } else {
+    st.s += expf(z - st.m);
+  }
+}
+
+// Merge the block's states of each row of its tile and write partial state
+// `idx` of each row, of n_parts: every thread puts its state in xs
+// ([THREADS][4] floats), then thread r < TB merges those of the slots of
+// row r in slot order (a row that no slot of the share holds gets the
+// empty state, which adds 0).
+__device__ __forceinline__ void write_share_states(const ShareState& sx, const Share& sh,
+                                                   float* xs, int row0, int B, int idx,
+                                                   int n_parts, float* __restrict__ part) {
+  float* o = xs + threadIdx.x * 4;
+  o[0] = sx.st.m, o[1] = sx.st.s, o[2] = sx.st.zy, o[3] = sx.st.cnt;
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r >= TB || row0 + r >= B) return;
+  RowState acc = {NEG_INF, 0.0f, 0.0f, 0.0f};
+  for (int j = 0; j < sh.i1 - sh.i0; ++j) {
+    if (slot_row(sh.i0 + j) != r) continue;
+    const float* x = xs + j * 4;
+    merge(acc, {x[0], x[1], x[2], x[3]});
+  }
+  const size_t plane = (size_t)n_parts * B;
+  const size_t at = (size_t)idx * B + row0 + r;
+  part[at] = acc.m;
+  part[plane + at] = acc.s;
+  part[2 * plane + at] = acc.zy;
+  part[3 * plane + at] = acc.cnt;
+}
+
 // DMAX < D <= CMAX: one cluster of n_slices(D) blocks per (batch tile,
 // split), consecutive in x, cluster u on batch tile u % n_rt of split
 // u / n_rt, block `slice` (its rank) on the depths [SW slice, SW slice + SW)
-// (see the top of this file).
-template <int VEC>
+// (see the top of this file).  SHARE (clusters past the portable size):
+// every block folds its share of each tile, not the owner the whole tile.
+template <int VEC, bool SHARE>
 __global__ void __launch_bounds__(THREADS, 2)
 fwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
                    const int* __restrict__ labels, const float* __restrict__ zt, int B, int C,
@@ -528,10 +607,14 @@ fwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
   const int n_ch = n_chunks(D);
   const int k0 = 2 * slice;
   const int cls0 = 8 * cosine_ntile(threadIdx.x >> 5) + 2 * (threadIdx.x & 3);
+  const Share sh = SHARE ? logit_share(slice, n_s) : Share{0, 0};
 
   stage_slice_fast<VEC>(wt, e, row0, B, D, slice);  // the raw e slice, through wt
   tf32x3::commit();
-  Rows rd = row_data(labels, zt, B, row0);
+  Rows rd;
+  ShareState sx;
+  if constexpr (SHARE) sx = share_state(sh, labels, zt, B, row0);
+  else rd = row_data(labels, zt, B, row0);
   tf32x3::wait_pending<0>();
   __syncthreads();
   stage_e_fragments(wt, ef);
@@ -542,9 +625,9 @@ fwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
   for (int t = tile_lo; t < tile_hi; ++t) {
     const int cur = (t - tile_lo) & 1;
     tf32x3::wait_pending<0>();
-    __syncthreads();  // tile t has landed, and the owner of t - 1 is done with rinv
-    // buffer cur is free: tile t - 2's owner read it before it arrived at
-    // tile t - 1's barrier, which this block has passed
+    __syncthreads();  // tile t has landed, and the last reader of rinv is done with it
+    // buffer cur is free: tile t - 2's readers read it before they arrived
+    // at tile t - 1's barrier, which this block has passed
     float* pb = pub + cur * 2 * THREADS * 4;
     float* sb = sqp + cur * 2 * TC;
     chunk_partials(ef, wt, k0, n_ch, pb);
@@ -556,7 +639,12 @@ fwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
     }
     cluster_arrive();
     cluster_wait();
-    if ((t - tile_lo) % n_s == slice) {
+    if constexpr (SHARE) {
+      cluster_rnorms_tail(sb, n_ch, rinv);
+      const float dot = cluster_logit_dot(pb, sh, n_ch);
+      __syncthreads();  // rinv
+      fold_share(sx, dot, sh, rinv, t * TC, C, mg);
+    } else if ((t - tile_lo) % n_s == slice) {
       cluster_rnorms(sb, n_ch, rinv);
       float dot[4];
       cluster_dot(dot, pb, n_ch);
@@ -567,7 +655,10 @@ fwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
   }
   cluster_arrive();  // this block reads no peer's shared memory any more
   // the last tile took no copy: wt is free for the row states
-  write_states(rd, wt, row0, B, split * n_s + slice, n_splits * n_s, part);
+  if constexpr (SHARE)
+    write_share_states(sx, sh, wt, row0, B, split * n_s + slice, n_splits * n_s, part);
+  else
+    write_states(rd, wt, row0, B, split * n_s + slice, n_splits * n_s, part);
   cluster_wait();  // no block leaves while a peer may read its shared memory
 }
 
@@ -617,7 +708,9 @@ inline int route_of(int D) { return D <= DMAX ? 0 : D <= CMAX ? 1 : 2; }
 inline int cluster_size(int D) { return route_of(D) == 1 ? n_slices(D) : 1; }
 
 // The route's kernel for depth D and its dynamic shared memory, with the
-// kernel allowed that much.
+// kernel allowed that much (and, on the cluster route, its cluster size).
+// Every launch and every occupancy query of this instantiation calls it
+// first.
 template <int VEC>
 cudaError_t route(int D, const void** kernel, size_t* smem) {
   if (route_of(D) == 0) {
@@ -626,10 +719,12 @@ cudaError_t route(int D, const void** kernel, size_t* smem) {
     *kernel = reinterpret_cast<const void*>(fwd_tiles_kernel<VEC>);
   } else if (route_of(D) == 1) {
     *smem = sizeof(float) * cluster_smem_floats();
-    *kernel = reinterpret_cast<const void*>(fwd_cluster_kernel<VEC>);
+    *kernel = D > CPORT ? reinterpret_cast<const void*>(fwd_cluster_kernel<VEC, true>)
+                        : reinterpret_cast<const void*>(fwd_cluster_kernel<VEC, false>);
     // two such blocks need the SM's whole 228 KB as shared memory
-    const cudaError_t err = cudaFuncSetAttribute(
+    cudaError_t err = cudaFuncSetAttribute(
         *kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) err = allow_cluster(*kernel, D);
     if (err != cudaSuccess) return err;
   } else {
     *smem = sizeof(float) * (2 * (TB + TC) * KC + TC + WARPS * 128);
@@ -659,8 +754,10 @@ cudaError_t launch(const float* e, const float* w, const int* labels, const floa
     // a refused cluster launch returns its error: no other route stands in
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(D, n_rt * n_splits, smem, st, &attr);
-    err = cudaLaunchKernelEx(&cfg, fwd_cluster_kernel<VEC>, e, w, labels, zt, B, C, D,
-                             tiles_per_split, mg, part);
+    err = D > CPORT ? cudaLaunchKernelEx(&cfg, fwd_cluster_kernel<VEC, true>, e, w, labels, zt,
+                                         B, C, D, tiles_per_split, mg, part)
+                    : cudaLaunchKernelEx(&cfg, fwd_cluster_kernel<VEC, false>, e, w, labels, zt,
+                                         B, C, D, tiles_per_split, mg, part);
     if (err != cudaSuccess) return err;
   } else {
     fwd_chunks_kernel<VEC><<<grid, THREADS, smem, st>>>(e, w, labels, zt, B, C, D,
@@ -699,9 +796,23 @@ int flash_aam_fwd_clusters(int D) {
   cudaLaunchAttribute attr;
   if (route_of(D) != 1 || route<4>(D, &kernel, &smem) != cudaSuccess) return -1;
   const cudaLaunchConfig_t cfg = cluster_config(D, 1, smem, nullptr, &attr);
-  if (cudaOccupancyMaxActiveClusters(&clusters, fwd_cluster_kernel<4>, &cfg) != cudaSuccess)
+  if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess)
     return -1;
   return clusters;
+}
+
+// The blocks of depth D's route that one SM of the current device holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor with the route's
+// shared memory; the 16-byte-copy kernel), or -1 on a CUDA error.
+int flash_aam_fwd_blocks_per_sm(int D) {
+  const void* kernel;
+  size_t smem;
+  int blocks = 0;
+  if (D <= 0 || route<4>(D, &kernel, &smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 // e (B, D) f32, w (C, D) f32, labels (B,) i32, zt (B,) f32, all contiguous on

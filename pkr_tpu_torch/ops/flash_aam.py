@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import math
 from typing import Optional
 
@@ -222,23 +223,45 @@ def _n_splits(n_tiles, n_btiles, units, per_unit):
     return tiles_per_split, -(-n_tiles // tiles_per_split)
 
 
+# class tiles' worth of time that a worker of the forward's cluster route
+# spends before its first tile (staging and splitting its e slice)
+_START_TILES = 1
+
+
+def _span(n_tiles, n_btiles, clusters, tps):
+    """Tile steps until the last worker of the forward's cluster route ends
+    with splits of ``tps`` class tiles: the card starts the (batch tile,
+    split) clusters in grid order (split by split; the last split's are the
+    short ones) on the ``clusters`` that it holds at once, each as soon as
+    one ends, and each takes its split's tiles and _START_TILES more."""
+    n_splits = -(-n_tiles // tps)
+    full = tps + _START_TILES
+    last = n_tiles - (n_splits - 1) * tps + _START_TILES
+    waves, left = divmod((n_splits - 1) * n_btiles, clusters)
+    free = [(waves + 1) * full] * left + [waves * full] * (clusters - left)
+    end = max(free)
+    heapq.heapify(free)
+    for _ in range(n_btiles):
+        t = heapq.heappop(free) + last
+        end = max(end, t)
+        heapq.heappush(free, t)
+    return end
+
+
+@functools.lru_cache(maxsize=None)
 def _cluster_splits(n_tiles, n_btiles, clusters):
     """(class tiles per split, splits) for the forward's cluster route,
     whose (batch tile, split) workers are clusters with nothing to fill the
-    card around them.  It takes _n_splits' even share, unless those workers
-    outnumber the clusters that the card holds at once: then the last
-    split's short workers wait for a second wave, and the slowest cluster
-    walks max(tps, 2·r) tiles (r: the last split's).  The split that fits
-    one wave, ⌈n_tiles / ⌊clusters / n_btiles⌋⌉ tiles, is taken where it
-    walks fewer."""
-    tps, n_splits = _n_splits(n_tiles, n_btiles, clusters, 1)
-    per_bt = clusters // n_btiles
-    if n_btiles * n_splits <= clusters or per_bt < 1:
-        return tps, n_splits
-    one_wave = -(-n_tiles // per_bt)
-    if one_wave < max(tps, 2 * (n_tiles - (n_splits - 1) * tps)):
-        return one_wave, -(-n_tiles // one_wave)
-    return tps, n_splits
+    card around them: the split whose last worker ends first (_span), over
+    every split size from 1 to n_tiles and _n_splits' even share; a tie
+    goes to the fewer workers.  Where the workers outnumber the clusters,
+    this takes more waves of shorter workers over a last wave that leaves
+    clusters idle (at 14 clusters and 8 batch tiles, 4 splits of 66 tiles,
+    not the even share's 2 of 131: 134 tile steps, not 198)."""
+    candidates = set(range(1, n_tiles + 1))
+    candidates.add(_n_splits(n_tiles, n_btiles, clusters, 1)[0])
+    best = min(candidates, key=lambda t: (_span(n_tiles, n_btiles, clusters, t), -t))
+    return best, -(-n_tiles // best)
 
 
 # each library's routes, in the order of its <kernel>_route(D) codes
@@ -256,9 +279,10 @@ def _query(kernel: str, name: str, D: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _route(kernel: str, D: int) -> str:
     """A kernel's route for depth D, as its library picks it.  The
-    forward's: ``tiles`` (D ≤ 256), ``cluster`` (to 2048) or ``chunks``; the
+    forward's: ``tiles`` (D ≤ 256), ``cluster`` (to 4096) or ``chunks``; the
     backward's: ``tiles`` (D ≤ 256), ``wide`` (to 512), ``cluster`` (to
-    2048) or ``chunks``."""
+    4096) or ``chunks``.  A cluster route runs clusters of ⌈D/256⌉ blocks:
+    up to 8 (D ≤ 2048) at the portable size, 9–16 past it."""
     return _ROUTES[kernel][_query(kernel, f"{kernel}_route", D)]
 
 

@@ -266,9 +266,12 @@ def test_split_rule_of_the_block_routes_is_unchanged():
 
 # (class tiles, batch tiles, clusters the card holds at once): the
 # backward's cluster route on an H100 (two blocks an SM: 62 clusters of 4 at
-# D = 1024, 30 of 8 at 2048, 79 of 3 at 513), then small and ragged cards
+# D = 1024, 30 of 8 at 2048, 79 of 3 at 513, and past the portable size 23
+# of 9 at 2304, 16 of 12 at 3001, 14 of 16 at 4096), then small and ragged
+# cards
 CLUSTER_SPLIT_CASES = [(219, 4, 62), (229, 8, 62), (229, 8, 30), (219, 2, 79), (229, 1, 62),
-                       (1, 1, 62), (5, 3, 2), (63, 2, 1), (1000, 3, 7)]
+                       (1, 1, 62), (5, 3, 2), (63, 2, 1), (1000, 3, 7), (219, 4, 23),
+                       (219, 4, 16), (229, 8, 14), (229, 4, 14)]
 
 
 @pytest.mark.parametrize("n_tiles,n_btiles,clusters", CLUSTER_SPLIT_CASES)
@@ -294,31 +297,40 @@ def test_split_rule_by_clusters_covers_every_class_tile_once(n_tiles, n_btiles, 
 
 # (class tiles, batch tiles, clusters the card holds at once) -> the
 # forward's cluster route's (tiles per split, splits): on an H100 (132
-# clusters of 2 at D = 300 and 512, 62 of 4 at 1024, 30 of 8 at 2048) at
-# B = 256, 128 and 100 over 7325 and 7001 classes, then small and ragged
-# cards
+# clusters of 2 at D = 300 and 512, 62 of 4 at 1024, 30 of 8 at 2048, and
+# past the portable size 23 of 9 at 2304, 16 of 12 at 3001, 14 of 16 at
+# 4096) at B = 256, 128 and 100 over 7325 and 7001 classes, then small and
+# ragged cards
 FWD_CLUSTER_SPLITS = {
-    (229, 8, 132): (14, 17), (229, 8, 62): (33, 7), (229, 8, 30): (77, 3),
+    (229, 8, 132): (14, 17), (229, 8, 62): (31, 8), (229, 8, 30): (31, 8),
     (229, 4, 132): (7, 33), (229, 4, 62): (15, 16), (219, 4, 132): (7, 32),
     (219, 4, 62): (15, 15), (219, 4, 30): (30, 8), (219, 2, 30): (15, 15),
-    (229, 1, 62): (4, 58), (1, 1, 62): (1, 1), (5, 3, 2): (8, 1), (63, 2, 1): (126, 1),
-    (1000, 3, 7): (429, 3), (7, 4, 9): (4, 2)}
+    (229, 1, 62): (4, 58), (1, 1, 62): (1, 1), (5, 3, 2): (4, 2), (63, 2, 1): (126, 1),
+    (1000, 3, 7): (429, 3), (7, 4, 9): (4, 2), (219, 4, 23): (40, 6), (219, 4, 16): (55, 4),
+    (229, 8, 14): (66, 4), (229, 4, 14): (66, 4)}
 
 
-def _span(n_tiles, n_btiles, clusters, tps, n_splits):
-    """Class tiles that the slowest cluster walks, the short workers of the
-    last split in a second wave where the workers outnumber the clusters."""
-    if n_btiles * n_splits <= clusters:
-        return tps
-    return max(tps, 2 * (n_tiles - (n_splits - 1) * tps))
+def _list_scheduled_end(n_tiles, n_btiles, clusters, tps):
+    """The end of the last worker, one worker at a time: (batch tile, split)
+    workers in grid order, each on the cluster that frees first, taking its
+    split's tiles plus the start-up tiles."""
+    n_splits = -(-n_tiles // tps)
+    free = [0] * clusters
+    for u in range(n_btiles * n_splits):
+        split = u // n_btiles
+        tiles = min(tps, n_tiles - split * tps)
+        k = free.index(min(free))
+        free[k] += tiles + port_flash._START_TILES
+    return max(free)
 
 
 @pytest.mark.parametrize("case", list(FWD_CLUSTER_SPLITS))
 def test_forward_cluster_splits_keep_one_wave(case):
     """The forward's cluster route (_cluster_splits): every class tile lies
-    in exactly one split and none is empty; it keeps _n_splits' even share
-    unless the workers outnumber the resident clusters and a one-wave split
-    spans fewer tiles, and it never spans more than the even share."""
+    in exactly one split and none is empty; its last worker ends no later
+    than with any other split size, and it keeps the workers to one wave
+    unless more waves end sooner.  _span agrees with scheduling the workers
+    one at a time."""
     n_tiles, n_btiles, clusters = case
     tps, n_splits = port_flash._cluster_splits(*case)
     assert (tps, n_splits) == FWD_CLUSTER_SPLITS[case]
@@ -326,10 +338,15 @@ def test_forward_cluster_splits_keep_one_wave(case):
              for t in range(split * tps, min(split * tps + tps, n_tiles))]
     assert sorted(owned) == list(range(n_tiles))
     assert (n_splits - 1) * tps < n_tiles
-    even = port_flash._n_splits(n_tiles, n_btiles, clusters, 1)
-    assert _span(*case, tps, n_splits) <= _span(*case, *even)
-    if (tps, n_splits) != even:
-        assert n_btiles * n_splits <= clusters < n_btiles * even[1]
+    span = port_flash._span(*case, tps)
+    assert span == _list_scheduled_end(*case, tps)
+    spans = {t: port_flash._span(*case, t) for t in range(1, n_tiles + 1)}
+    assert span <= min(spans.values())
+    one_wave = [v for t, v in spans.items() if n_btiles * -(-n_tiles // t) <= clusters]
+    if one_wave and n_btiles * n_splits > clusters:
+        assert span < min(one_wave)
+    even = port_flash._n_splits(n_tiles, n_btiles, clusters, 1)[0]
+    assert span <= port_flash._span(*case, even)
 
 
 def test_bwd_wrapper_checks_inputs():

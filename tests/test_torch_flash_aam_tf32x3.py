@@ -23,19 +23,20 @@ on every deep route of both kernels: the depth in chunks of 128, the last
 padded with zeros, each chunk's dot the sum of its two 64-deep halves, each
 half the f32 sum of its 16-deep 3×TF32 products in order, and the chunks'
 dots added in chunk order.  The forward's cluster route (fwd_cluster_kernel,
-256 < D ≤ 2048) adds the chunks' dots and sums of squares that the
+256 < D ≤ 4096) adds the chunks' dots and sums of squares that the
 cluster's blocks publish in that same order.  mm_chunked emulates that
 order for the depth product and is held to the Pallas kernels at the same
-bars, up to D = 2048, a cluster of 8.  Up to
+bars, up to D = 4096, a cluster of 16 (clusters of 9, 12 and 16 at D =
+2304, 3001 and 4096, past the portable size of 8).  Up to
 D = 512 the backward takes its wide route (flash_aam_bwd.cu:
 bwd_wide_kernel), which forms the same cosines but sums dW's projection
 dŵ·ŵ over the whole depth in one pass, in its warps' order (row_dot_wide);
 the backward test holds that model to the Pallas kernel at D = 300 and 512.
-From 512 to 2048 it takes its cluster route (bwd_cluster_kernel), whose
+From 512 to 4096 it takes its cluster route (bwd_cluster_kernel), whose
 blocks each hold a 256-wide slice of the depth: the same cosines, and dW's
 projection summed per slice in its warps' order, then over the slices in
-slice order (row_dot_sliced), held to the Pallas kernel at D = 777, 1024 and
-2048.
+slice order (row_dot_sliced), held to the Pallas kernel at D = 777, 1024,
+2048, 2304, 3001 and 4096, and to the f64 dot within f32 rounding.
 """
 
 import numpy as np
@@ -105,7 +106,10 @@ DEEP_CASES = {"D300": (make(B=24, D=300, C=200, seed=12), 128),
               "D512": (make(B=24, D=512, C=300, seed=13), 256),
               "D1024": (make(B=24, D=1024, C=200, seed=14), 128),
               "D777": (make(B=24, D=777, C=200, seed=15), 128),
-              "D2048": (make(B=16, D=2048, C=100, seed=16), 128)}
+              "D2048": (make(B=16, D=2048, C=100, seed=16), 128),
+              "D2304": (make(B=16, D=2304, C=100, seed=17), 128),
+              "D3001": (make(B=16, D=3001, C=100, seed=18), 128),
+              "D4096": (make(B=16, D=4096, C=100, seed=19), 128)}
 
 
 def row_dot_wide(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -137,15 +141,15 @@ SW = 256  # the depth of a block's slice on the cluster route (flash_aam_cosine.
 
 def row_dot_sliced(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Σ_d x·y of each row, kept as a column, in the order in which
-    bwd_cluster_kernel sums dW's projection (512 < D ≤ 2048, zeros to a
-    multiple of 256): depth d = 256·s + 32·w + 8·j + 2·t + q lies with lane t
+    bwd_cluster_kernel sums dW's projection (512 < D ≤ 4096, zeros to a
+    multiple of 256, one slice per block of a cluster of up to 16): depth d = 256·s + 32·w + 8·j + 2·t + q lies with lane t
     of a class's four in warp w of the cluster's block s; each lane adds its
     products in the order j, q, one rounding each (fmaf; modelled in f64,
     then rounded to f32), the four lanes add as (t0 + t1) + (t2 + t3), the
     warps' sums add from 0 in warp order, and the slices' sums add in slice
     order."""
     C, D = x.shape
-    assert 512 < D <= 2048
+    assert 512 < D <= 4096
     n_s = -(-D // SW)
     prod = torch.nn.functional.pad(x.double() * y.double(), (0, n_s * SW - D))
     prod = prod.reshape(C, n_s, 8, 4, 4, 2)  # (class, slice, w, j, t, q)
@@ -161,6 +165,23 @@ def row_dot_sliced(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     for sl in range(1, n_s):
         total = total + per_slice[:, sl]
     return total[:, None]
+
+
+@pytest.mark.parametrize("D", [777, 2048, 2304, 3001, 4096])
+def test_row_dot_sliced_is_f32_accurate(D):
+    """row_dot_sliced (the order of dW's projection on the cluster route, up
+    to 16 slices) against the f64 dot of each row: within the error bound
+    of a recursive f32 sum of its terms, n·u·Σ|x·y| (u = 2⁻²⁴, n = D), and
+    no further from it than the plain f32 row sum is, times 4."""
+    rng = np.random.default_rng(D)
+    x = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32))
+    exact = (x.double() * y.double()).sum(dim=1, keepdim=True)
+    err = (row_dot_sliced(x, y).double() - exact).abs()
+    bound = D * 2.0 ** -24 * (x.double() * y.double()).abs().sum(dim=1, keepdim=True)
+    assert bool((err <= bound).all())
+    plain = float((port_flash._row_dot(x, y).double() - exact).abs().max())
+    assert float(err.max()) <= 4 * plain + 1e-6
 
 
 def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -297,7 +318,7 @@ def test_tf32x3_bwd_matches_pallas_bwd(name, monkeypatch):
     deep cases model the backward's route for their depth: the chunked
     cosine (mm_chunked) and dW's projection in the route's order, the wide
     route's (row_dot_wide) at D = 300 and 512, the cluster route's
-    (row_dot_sliced) at D = 777, 1024 and 2048."""
+    (row_dot_sliced) at D = 777, 1024, 2048, 2304, 3001 and 4096."""
     (emb, w, labels), tile = {**CASES, **DEEP_CASES}[name]
     mm = mm_tf32x3
     if name in DEEP_CASES:

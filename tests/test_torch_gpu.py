@@ -20,14 +20,16 @@ there.  Two calls of either kernel on the same inputs give the same bits.
 The two kernels form the same cosine bits: with one class, the backward's
 gradients from the forward's own lse are exactly 0, at D <= 256 and at
 D > 256, where the forward splits the depth over a thread-block cluster up
-to D = 2048 (its cluster route) and streams it in 128-deep chunks beyond,
-and the backward keeps the chunks resident up to D = 512 (its wide route),
-splits them over a cluster up to 2048 (its cluster route) and streams them
-beyond (D = 300, 301, 512, 777, 1024, 2048 and 2304 are held to the plain
-version in both directions, each on its routes; D = 301 and 777 take the
-4-byte copies).  Each backward route holds as many blocks on an SM as its
-shared memory allows, and each cluster route as many clusters as the card
-holds at once.  The flash gradients
+to D = 4096 (its cluster route; clusters of up to 8 blocks to D = 2048, the
+portable size, and of 9 to 16 past it) and streams it in 128-deep chunks
+beyond, and the backward keeps the chunks resident up to D = 512 (its wide
+route), splits them over a cluster up to 4096 (its cluster route) and
+streams them beyond (D = 300, 301, 512, 777, 1024, 2048, 2304, 3001, 4096
+and 4608 are held to the plain version in both directions, each on its
+routes; D = 301, 777 and 3001 take the 4-byte copies).  Each backward route
+holds as many blocks on an SM as its shared memory allows, and each
+cluster route as many clusters as the card holds at once, at least one of
+16.  The flash gradients
 against the dense head's autograd (cuBLAS f32) at rtol 2e-3, atol 1e-6 as
 tests/test_flash_aam.py, and row by row within 1e-3.  Labels outside
 [0, C), the shard-local labels of a class-sharded head, give no target
@@ -83,7 +85,7 @@ def test_flash_aam_fwd_rejects_bad_inputs():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [256, 300, 512, 1024, 2048])
+@pytest.mark.parametrize("D", [256, 300, 512, 1024, 2048, 4096])
 def test_flash_aam_fwd_is_deterministic(D):
     dev = _card()
     rng = np.random.default_rng(3)
@@ -101,7 +103,8 @@ def test_flash_aam_fwd_is_deterministic(D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("B,D", [(256, 256), (100, 37), (256, 512), (100, 300), (100, 301),
-                                 (100, 1024), (100, 777), (64, 2048)])
+                                 (100, 1024), (100, 777), (64, 2048), (100, 2304),
+                                 (64, 3001), (64, 4096)])
 def test_fwd_and_bwd_cosines_agree_bit_for_bit(B, D, exact):
     """With one class and every label 0, the forward's lse is its zy, so the
     backward's p = exp(z − lse) is exactly 1 and its gradients exactly 0
@@ -224,21 +227,23 @@ def test_flash_aam_off_shard_labels_match_plain(B, C, D, how):
 
 
 def _fwd_route(D):
-    return "tiles" if D <= 256 else "cluster" if D <= 2048 else "chunks"
+    return "tiles" if D <= 256 else "cluster" if D <= 4096 else "chunks"
 
 
 def _bwd_route(D):
-    return "tiles" if D <= 256 else "wide" if D <= 512 else "cluster" if D <= 2048 else "chunks"
+    return "tiles" if D <= 256 else "wide" if D <= 512 else "cluster" if D <= 4096 else "chunks"
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [300, 301, 512, 777, 1024, 2048, 2304])
+@pytest.mark.parametrize("D", [300, 301, 512, 777, 1024, 2048, 2304, 3001, 4096, 4608])
 def test_flash_aam_deep_rows_match_plain(D):
-    """D > 256 (the forward's cluster route up to 2048 and its chunked route
-    beyond; the backward's wide route up to 512, its cluster route to 2048
+    """D > 256 (the forward's cluster route up to 4096 and its chunked route
+    beyond; the backward's wide route up to 512, its cluster route to 4096
     and its chunked route beyond; D = 777 takes the 4-byte copies and a
-    ragged last slice, 2048 a cluster of 8) against the plain versions at
-    the bars above, forward and backward, each launch on its route."""
+    ragged last slice, 2048 a cluster of 8, 2304 one of 9, 3001 one of 12
+    with 4-byte copies and a ragged last slice, 4096 one of 16) against the
+    plain versions at the bars above, forward and backward, each launch on
+    its route."""
     fwd, bwd = _fwd_route(D), _bwd_route(D)
     before = (flash_aam.flash_aam_fwd.route_launches[fwd],
               flash_aam.flash_aam_bwd.route_launches[bwd])
@@ -250,12 +255,13 @@ def test_flash_aam_deep_rows_match_plain(D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [256, 257, 512, 513, 2048, 2049])
+@pytest.mark.parametrize("D", [256, 257, 512, 513, 2048, 2049, 3001, 4096, 4097, 4608])
 def test_flash_aam_fwd_route_by_depth(D):
     """The forward's library picks the tiles route up to D = 256, the
-    cluster route to 2048 (clusters of ceil(D / 256) blocks, at least one
-    of which the card holds at once, and no more blocks than two an SM)
-    and the chunked route beyond, and a launch is counted on that route."""
+    cluster route to 4096 (clusters of ceil(D / 256) blocks, up to 16, at
+    least one of which the card holds at once, and no more blocks than two
+    an SM) and the chunked route beyond, and a launch is counted on that
+    route."""
     dev = _card()
     index = dev.index or 0
     kernel = flash_aam._KERNEL
@@ -278,10 +284,11 @@ def test_flash_aam_fwd_route_by_depth(D):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,blocks", [(37, 2), (256, 2), (257, 1), (301, 1), (512, 1),
-                                      (513, 2), (1024, 2), (2048, 2), (2049, 2)])
+                                      (513, 2), (1024, 2), (2048, 2), (2049, 2), (3001, 2),
+                                      (4096, 2), (4097, 2)])
 def test_flash_aam_bwd_blocks_per_sm_by_route(D, blocks):
     """The occupancy the split rule reads: two blocks an SM for the tiles,
-    cluster (512 < D <= 2048) and chunked routes, one for the wide route
+    cluster (512 < D <= 4096) and chunked routes, one for the wide route
     (256 < D <= 512).  The cluster route also reports its cluster size,
     ceil(D / 256), and how many clusters the card holds at once: at least
     one, and no more blocks than its SMs hold."""
@@ -290,7 +297,7 @@ def test_flash_aam_bwd_blocks_per_sm_by_route(D, blocks):
     kernel = flash_aam._BWD_KERNEL
     assert flash_aam._bwd_blocks_per_sm(index, D) == blocks
     size = flash_aam._query(kernel, "flash_aam_bwd_cluster_size", D)
-    if 512 < D <= 2048:
+    if 512 < D <= 4096:
         assert size == -(-D // 256)
         clusters = flash_aam._occupancy(kernel, index, D, "flash_aam_bwd_clusters")
         sms = torch.cuda.get_device_properties(index).multi_processor_count
@@ -301,7 +308,7 @@ def test_flash_aam_bwd_blocks_per_sm_by_route(D, blocks):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [256, 300, 301, 512, 777, 1024, 2048])
+@pytest.mark.parametrize("D", [256, 300, 301, 512, 777, 1024, 2048, 4096])
 def test_flash_aam_bwd_is_deterministic(D):
     dev = _card()
     args = _bwd_case(dev, 256, 7325, D)
