@@ -6,9 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --deep-times ROOT` instead times both kernels at
-their deep shapes, D = 300, 512, 1024 (twice), 2304 and 4096, from the
-pkr_tpu_torch of the checkout at ROOT: run in turns on two checkouts in one
-call, it compares them on one card.)
+their deep shapes, D = 300, 512, 1024 (twice), 2304, 4096 and 4608 (twice),
+from the pkr_tpu_torch of the checkout at ROOT: run in turns on two
+checkouts in one call, it compares them on one card.)
 
 Phases, one JSON line each:
   env     the card's name, count and power limit (nvidia-smi);
@@ -16,19 +16,24 @@ Phases, one JSON line each:
           source, all at once (seconds, ptxas registers, shared memory and
           spills, and the tensor-core HMMA instructions cuobjdump finds in
           each: both kernels run on the tensor cores, so neither may have
-          none; the backward's wide and cluster routes and the forward's
-          cluster route may not spill);
+          none; the backward's wide, cluster and passes routes and the
+          forward's cluster route may not spill);
   kernel  the clusters of each cluster route that the card holds at once
           and its blocks an SM, at D = 1024, 2048, 2304, 3001 and 4096
-          (clusters of 4, 8, 9, 12 and 16 blocks; at least one each); each
-          kernel against its plain PyTorch version on the card, at the
+          (clusters of 4, 8, 9, 12 and 16 blocks; at least one each), and of
+          the backward's passes route at D = 4608, 6001 and 8192 (two depth
+          passes of 9, 12 and 16 blocks); each kernel against its plain
+          PyTorch version on the card, at the
           shapes of the paths and beyond: D = 256; the deep D = 512, 300 and
           301 (4-byte copies), which the forward takes through its cluster
           route and the backward through its wide route; D = 1024, 777
           (4-byte copies, a ragged last slice), 2048 (a cluster of 8), 2304
           (9, every slice full), 3001 (12, 4-byte copies, a last slice of
-          185 columns) and 4096 (16), the cluster route of both; and
-          D = 4608, the chunked route of both (the forward twice for the
+          185 columns) and 4096 (16), the cluster route of both; D = 4608,
+          the forward's chunked route and the backward's passes route,
+          which the backward also takes at D = 4097 (a last slice of one
+          column), 6001 (4-byte copies), 8192 and 8193 (three depth
+          passes; the forward twice for the
           same bits at every deep D; a gradient row by row, each row within
           1e-3 of its own norm, with planted faults the check must reject;
           the backward also with every target p ≈ 0.993 against the plain
@@ -40,11 +45,12 @@ Phases, one JSON line each:
           against each other: with one class the backward's gradients are
           exactly 0 iff both formed the same cosine bits
           (check_consistency, D = 256, 37, 512, 300, 301, 1024, 777, 2048,
-          2304, 3001, 4096 and 4608); and one flash and one dense ResNet-34
-          train step of a 512-, a 1024- and a 4096-wide embedding agree,
-          every forward launch of each path on the forward's cluster route
-          and every backward launch on its route (wide, cluster, cluster in
-          clusters of 16), with both steps' ms and the flash step's device
+          2304, 3001, 4096, 4097, 4608, 6001, 8192 and 8193); and one flash and one
+          dense ResNet-34 train step of a 512-, a 1024-, a 4096- and a
+          4608-wide embedding agree, every forward launch of each path on
+          the forward's cluster route (its chunked route at 4608) and every
+          backward launch on its route (wide, cluster, cluster in clusters
+          of 16, passes), with both steps' ms and the flash step's device
           ms and kernel share; the phase within 150 s;
   slice   the serving path at full width — 128 six-second utterances through
           wav_to_train_feats → ResNet-34 SpeakerModel (7325-speaker AAM head,
@@ -158,8 +164,9 @@ Phases, one JSON line each:
           512), then one entry for each deeper route: the backward's wide
           route (timed at 256 × 7325 × 512), each cluster route (timed at
           100 × 7001 × 1024, with a `deep` record at 256 × 7325 × 1024 and
-          `shapes` at 100 × 7001 × 2304 and 256 × 7325 × 4096) and each
-          chunked route (timed at 100 × 7001 × 4608; launched by no path).
+          `shapes` at 100 × 7001 × 2304 and 256 × 7325 × 4096), the
+          forward's chunked route and the backward's passes route (timed at
+          100 × 7001 × 4608, launched on the 4608-wide train path).
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
 or outside a checkout, it fails at once and prints no result.
@@ -358,13 +365,15 @@ def phase_build():
               "wall_seconds_all": wall, "ptxas": info["ptxas"], "hmma_instructions": hmma})
         check(hmma > 0, f"the {name} library has no HMMA instruction")
     # the backward's route for 256 < D <= 512 holds a 32 x 512 accumulator a
-    # block in registers, its cluster route (512 < D <= 4096) a 32 x 256
-    # slice in the 128 registers of two blocks an SM, and the forward's
-    # cluster route (256 < D <= 4096) runs two blocks an SM too: none may
-    # spill (each cluster kernel has a 16- and a 4-byte-copy instantiation,
-    # each in two exchanges: up to the portable cluster size and past it)
+    # block in registers, its cluster route (512 < D <= 4096) and its passes
+    # route beyond a 32 x 256 slice in the 128 registers of two blocks an
+    # SM, and the forward's cluster route (256 < D <= 4096) runs two blocks
+    # an SM too: none may spill (each cluster kernel has a 16- and a
+    # 4-byte-copy instantiation, the backward's cluster kernel each in two
+    # exchanges: up to the portable cluster size and past it)
     for lib, kernel, n in (("flash_aam_bwd", "bwd_wide_kernel", 2),
                            ("flash_aam_bwd", "bwd_cluster_kernel", 4),
+                           ("flash_aam_bwd", "bwd_passes_kernel", 2),
                            ("flash_aam_fwd", "fwd_cluster_kernel", 4)):
         ptxas = _native.BUILD_INFO[lib]["ptxas"]
         found = {k: v for k, v in ptxas.items() if kernel in k}
@@ -492,8 +501,10 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True, re
     return row
 
 
-BWD_KERNELS = ("bwd_tiles_kernel", "bwd_wide_kernel", "bwd_cluster_kernel", "bwd_chunks_kernel",
-               "bwd_de_sum_kernel")
+# every kernel of the backward's library (bwd_<route>_kernel and
+# bwd_de_sum_kernel), the routes of an older checkout's that --deep-times
+# times included
+BWD_KERNELS = ("bwd_",)
 ROW_TOL = 1e-3
 
 
@@ -766,30 +777,45 @@ KERNEL_BUDGET_S = 150.0
 # the cluster routes' depths past the portable cluster size (8): clusters
 # of 9, 12 and 16 blocks
 NONPORTABLE_D = (2304, 3001, 4096)
+# the backward's passes route (D > 4096): two depth passes of clusters of
+# 9, 12 and 16 blocks
+PASSES_D = (4608, 6001, 8192)
 
 
 def resident_clusters(torch, smi_line):
     """The clusters of each cluster route that the card holds at once, and
     its blocks an SM, at D = 1024 and 2048 (clusters of 4 and 8) and at
-    NONPORTABLE_D (9, 12 and 16): the launch refuses a cluster that the card
-    cannot hold, so each must be at least 1."""
+    NONPORTABLE_D (9, 12 and 16), and those of the backward's passes route
+    at PASSES_D, with its depth passes: the launch refuses a cluster that
+    the card cannot hold, so each must be at least 1."""
     from pkr_tpu_torch.ops import flash_aam as fa
 
     by_d = {}
     with torch.cuda.device(0):
-        for D in (1024, 2048) + NONPORTABLE_D:
-            rec = {"n_s": fa._query(fa._KERNEL, "flash_aam_fwd_cluster_size", D),
-                   "bwd_n_s": fa._query(fa._BWD_KERNEL, "flash_aam_bwd_cluster_size", D)}
-            for kernel, short in ((fa._KERNEL, "fwd"), (fa._BWD_KERNEL, "bwd")):
+        for D in (1024, 2048) + NONPORTABLE_D + PASSES_D:
+            kernels = ((fa._KERNEL, "fwd"),) if D <= 4096 else ()
+            rec = {"bwd_n_s": fa._query(fa._BWD_KERNEL, "flash_aam_bwd_cluster_size", D),
+                   "bwd_passes": fa._query(fa._BWD_KERNEL, "flash_aam_bwd_passes", D)}
+            if D <= 4096:
+                rec["n_s"] = fa._query(fa._KERNEL, "flash_aam_fwd_cluster_size", D)
+            for kernel, short in kernels + ((fa._BWD_KERNEL, "bwd"),):
                 rec[f"{short}_clusters"] = fa._query(kernel, f"{kernel}_clusters", D)
                 rec[f"{short}_blocks_per_sm"] = fa._query(kernel, f"{kernel}_blocks_per_sm", D)
             by_d[D] = rec
     emit({"phase": "kernel", "kernel": "resident_clusters", "by_D": by_d,
           "sms": torch.cuda.get_device_properties(0).multi_processor_count, "card": smi_line})
     for D, rec in by_d.items():
-        check(rec["n_s"] == rec["bwd_n_s"] == -(-D // 256), f"D = {D}: cluster sizes {rec}")
-        check(rec["fwd_clusters"] >= 1 and rec["bwd_clusters"] >= 1,
-              f"D = {D}: the card holds no cluster of {rec['n_s']}: {rec}")
+        if D <= 4096:
+            check(rec["n_s"] == rec["bwd_n_s"] == -(-D // 256) and rec["bwd_passes"] == 1,
+                  f"D = {D}: cluster sizes {rec}")
+            check(rec["fwd_clusters"] >= 1, f"D = {D}: the card holds no cluster of "
+                                            f"{rec['n_s']}: {rec}")
+        else:
+            check((rec["bwd_passes"], rec["bwd_n_s"]) == fa.bwd_passes_geometry(D),
+                  f"D = {D}: passes and cluster size {rec}")
+        check(rec["bwd_clusters"] >= 1 and rec["bwd_blocks_per_sm"] == 2,
+              f"D = {D}: the card holds no cluster of {rec['bwd_n_s']} at two blocks an SM: "
+              f"{rec}")
     return by_d
 
 
@@ -802,9 +828,9 @@ def phase_kernel(torch, smi_line):
     # copies; 4-byte copies and a ragged last slice at 777, the 1024-wide
     # embedding, a cluster of 8 at 2048; past the portable size clusters of
     # 9 at 2304 (every slice full), of 12 at 3001 (4-byte copies, a last
-    # slice of 185 columns) and of 16 at 4096; beyond it the chunked
-    # routes at 4608, timed against the library; every deep case twice for
-    # the same bits
+    # slice of 185 columns) and of 16 at 4096; beyond it the forward's
+    # chunked route and the backward's passes route at 4608, timed against
+    # the library; every deep case twice for the same bits
     clusters = resident_clusters(torch, smi_line)
     cases = [("slice_eval", BATCH, SPK, 256, True), ("path_b256", 256, SPK, 256, True),
              ("path_b1024", 1024, SPK, 256, True), ("scale_c131072", 256, 131072, 256, True),
@@ -825,15 +851,20 @@ def phase_kernel(torch, smi_line):
                  # the cluster route (512 < D <= 4096): 4-byte copies and a
                  # ragged last slice at 777, a cluster of 8 at 2048, of 9 at
                  # 2304, of 12 at 3001 (4-byte copies, a ragged last slice)
-                 # and of 16 at 4096; beyond it the chunked route (~16 ms a
-                 # call at 4608: 5 timed calls), timed against the library
+                 # and of 16 at 4096; beyond it the passes route, timed
+                 # against the library at 4608, two passes of 9 blocks, and
+                 # at 4097 (a last slice of one column), 6001 (12 blocks,
+                 # 4-byte copies, a ragged last slice), 8192 (16) and 8193
+                 # (three passes of 11, two output groups)
                  ("ragged_d1024", 100, 7001, 1024, True), ("ragged_d777", 100, 7001, 777, False),
                  ("train_b256_d1024", TRAIN_B, SPK, 1024, True),
                  ("b64_d2048", 64, 7001, 2048, False), ("ragged_d2304", 100, 7001, 2304, True),
                  ("ragged_d3001", 100, 7001, 3001, False), ("b256_d4096", TRAIN_B, SPK, 4096, True),
-                 ("ragged_d4608", 100, 7001, 4608, True)]
+                 ("ragged_d4608", 100, 7001, 4608, True), ("ragged_d4097", 100, 7001, 4097, False),
+                 ("ragged_d6001", 100, 7001, 6001, False), ("b64_d8192", 64, 7001, 8192, False),
+                 ("b64_d8193", 64, 7001, 8193, False)]
     bwd_rows = [check_flash_bwd_case(torch, name, B, C, D, seed=20 + i, timed=timed,
-                                     repeat=(i == 0 or D > 256), iters=5 if D > 4096 else None)
+                                     repeat=(i == 0 or D > 256))
                 for i, (name, B, C, D, timed) in enumerate(bwd_cases)]
     bwd_rows.append(check_flash_bwd_case(torch, "saturated", 4, 300, 256, seed=29,
                                          saturated=True, timed=False))
@@ -849,12 +880,15 @@ def phase_kernel(torch, smi_line):
         check_offshard_case(torch, "b256", TRAIN_B, SPK, 256, 50 + i, how)
     check_offshard_case(torch, "ragged_d300", 100, 7001, 300, 53, "minus_c")
     check_offshard_case(torch, "ragged_d1024", 100, 7001, 1024, 54, "mixed")
+    # D = 4097 has no exact construction (consistency_inputs): the Gaussian
+    # case alone
     for i, (B, D) in enumerate(((256, 256), (100, 37), (256, 512), (100, 300), (100, 301),
                                 (100, 1024), (100, 777), (64, 2048), (100, 2304), (64, 3001),
-                                (64, 4096), (64, 4608))):
-        for exact in (True, False):
+                                (64, 4096), (64, 4608), (64, 4097), (64, 6001), (64, 8192),
+                                (64, 8193))):
+        for exact in (True, False) if D != 4097 else (False,):
             check_consistency(torch, B, D, seed=40 + i, exact=exact)
-    wide_launches = {D: check_wide_train(torch, smi_line, D) for D in (512, 1024, 4096)}
+    wide_launches = {D: check_wide_train(torch, smi_line, D) for D in WIDE_D}
     phase_s = time.perf_counter() - t0
     emit({"phase": "kernel", "kernel": "all", "phase_s": phase_s, "card": smi_line})
     check(phase_s <= KERNEL_BUDGET_S, f"the kernel phase took {phase_s:.1f} s "
@@ -863,12 +897,16 @@ def phase_kernel(torch, smi_line):
 
 
 WIDE_B = 128
+# the embedding widths of the kernel phase's train steps
+WIDE_D = (512, 1024, 4096, 4608)
 
 
 def check_wide_train(torch, smi_line, D):
     """A D-wide embedding (SpeakerModel(emb_dim=D); the forward's cluster
-    route at every D, the backward's wide route at D = 512, its cluster
-    route at 1024 and 4096, in clusters of 4 and of 16): one flash step and one dense step from the same weights agree
+    route up to D = 4096 and its chunked route at 4608, the backward's wide
+    route at D = 512, its cluster route at 1024 and 4096, in clusters of 4
+    and of 16, and its passes route at 4608, two passes of 9 blocks): one
+    flash step and one dense step from the same weights agree
     (flash_dense_agree), and every launch of each kernel on the path takes
     that route; then both steps' ms (_median_step_ms) and the flash step's
     device ms with its kernels' share."""
@@ -887,7 +925,8 @@ def check_wide_train(torch, smi_line, D):
     lr = cosine_epoch_lr(0.1, 10)(0)
     steps = {"flash": make_train_step(model, flash_aam=True), "dense": make_train_step(model)}
 
-    route = "wide" if D <= 512 else "cluster"
+    fwd_route = "cluster" if D <= 4096 else "chunks"
+    route = "wide" if D <= 512 else "cluster" if D <= 4096 else "passes"
     # --- the D-wide path, with the kernel counts at 0 just before it ---
     fa.flash_aam_fwd.launches = 0
     fa.flash_aam_fwd.route_launches = dict.fromkeys(fa.flash_aam_fwd.route_launches, 0)
@@ -907,9 +946,10 @@ def check_wide_train(torch, smi_line, D):
                 "flash_aam_bwd": fa.flash_aam_bwd.launches,
                 "flash_aam_bwd_routes": dict(fa.flash_aam_bwd.route_launches)}
     # --- end of the D-wide path ---
-    check(launches["flash_aam_fwd_routes"]["cluster"] > 0 and
-          launches["flash_aam_fwd"] == launches["flash_aam_fwd_routes"]["cluster"],
-          f"the {D}-wide train path did not run the forward's cluster route alone: {launches}")
+    check(launches["flash_aam_fwd_routes"][fwd_route] > 0 and
+          launches["flash_aam_fwd"] == launches["flash_aam_fwd_routes"][fwd_route],
+          f"the {D}-wide train path did not run the forward's {fwd_route} route alone: "
+          f"{launches}")
     check(launches["flash_aam_bwd_routes"][route] > 0 and
           launches["flash_aam_bwd"] == launches["flash_aam_bwd_routes"][route],
           f"the {D}-wide train path did not run the backward's {route} route alone: {launches}")
@@ -2852,10 +2892,12 @@ def phase_parallel(torch, smi_line, cfg=PAR):
 
 
 # both kernels' deep shapes that PERF.md tracks, timed by --deep-times:
-# below the portable cluster size, past it, and the widest cluster
+# below the portable cluster size, past it, the widest cluster, and the
+# depth passes past it
 DEEP_TIMED = (("b256_d512", TRAIN_B, SPK, 512), ("ragged_d300", 100, 7001, 300),
               ("ragged_d1024", 100, 7001, 1024), ("b256_d1024", TRAIN_B, SPK, 1024),
-              ("ragged_d2304", 100, 7001, 2304), ("b256_d4096", TRAIN_B, SPK, 4096))
+              ("ragged_d2304", 100, 7001, 2304), ("b256_d4096", TRAIN_B, SPK, 4096),
+              ("ragged_d4608", 100, 7001, 4608), ("b256_d4608", TRAIN_B, SPK, 4608))
 
 
 def _timing(row):
@@ -2994,10 +3036,10 @@ def main():
                       [r for r in rows if 256 < r["D"] <= 4096], timed(rows, "ragged_d1024"),
                       fwd_errs, deep_row=timed(rows, "train_b256_d1024"),
                       more_rows=[timed(rows, "ragged_d2304"), timed(rows, "b256_d4096")]),
-        # the forward's chunked route (D > 4096), timed at 100 x 7001 x 4608;
-        # no path is that wide
+        # the forward's chunked route (D > 4096), timed at 100 x 7001 x 4608
+        # and launched on the 4608-wide train path
         _kernel_entry("fwd_chunks_kernel", fwd_src, fwd_tpu,
-                      by_route("flash_aam_fwd", "chunks", wide_launches),
+                      by_route("flash_aam_fwd", "chunks", (4608,)),
                       [r for r in rows if r["D"] > 4096], timed(rows, "ragged_d4608"), fwd_errs),
         # the backward's wide route (256 < D <= 512), timed at 256 x 7325 x
         # 512 and launched on the 512-wide train path
@@ -3015,10 +3057,10 @@ def main():
                       timed(bwd_rows, "ragged_d1024"), bwd_errs,
                       deep_row=timed(bwd_rows, "train_b256_d1024"),
                       more_rows=[timed(bwd_rows, "ragged_d2304"), timed(bwd_rows, "b256_d4096")]),
-        # the backward's chunked route (D > 4096), timed at 100 x 7001 x
-        # 4608; no path is that wide
-        _kernel_entry("bwd_chunks_kernel", bwd_src, bwd_tpu,
-                      by_route("flash_aam_bwd", "chunks", wide_launches),
+        # the backward's passes route (D > 4096), timed at 100 x 7001 x
+        # 4608 and launched on the 4608-wide train path
+        _kernel_entry("bwd_passes_kernel", bwd_src, bwd_tpu,
+                      by_route("flash_aam_bwd", "passes", (4608,)),
                       [r for r in bwd_rows if r["D"] > 4096], timed(bwd_rows, "ragged_d4608"),
                       bwd_errs)]
     emit({"kernels": kernels})

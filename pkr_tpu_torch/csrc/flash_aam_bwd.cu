@@ -116,11 +116,17 @@
 //     8 SMs of one GPC.  The de pass's splits are sized by the clusters
 //     that the card holds at once (flash_aam_bwd_clusters), and its
 //     clusters come first in the grid.
-//   D > CMAX: bwd_chunks_kernel (dw_chunks_block, de_chunks_block).  A
-//     cluster would exceed Hopper's largest (16), so the cosine tiles stream
-//     the depth through chunked_cosine and the second products run over
-//     256-wide output chunks, recomputing the cosine tiles for each; two
-//     blocks an SM, as the tiles kernel.
+//   D > CMAX: bwd_passes_kernel (dw_passes_block, de_passes_block), after
+//     bwd_norms_kernel.  A cluster of a block a slice would exceed Hopper's
+//     largest (16), so a cluster of n_c = passes_cluster(D) blocks (9 to
+//     16) walks the depth in P = n_passes(D) passes of one slice a block,
+//     each block carrying the running chunk-order sum of its share of the
+//     tile's cosines from pass to pass (flash_aam_cosine.cuh: the depth in
+//     passes).  Each block takes half a tile (16 batch rows or classes)
+//     across two slices, the 32 accumulators a thread of the other routes,
+//     so a pass forms each cosine tile once up to D = 8192 (P = 2), where
+//     a block on one 256-wide output chunk at a time would form it
+//     ceil(D / 256) times.  Two blocks an SM.
 //
 // Numerics against the forward.  The cosine tile (tile_rnorms, cosine_dots)
 // is flash_aam_cosine.cuh's, which the forward kernel calls on the same
@@ -130,8 +136,9 @@
 // sin_m * cos / sin and one ulp of cosine would move p by up to ~1e-3.  A
 // saturated cosine is exact: 1.0 and 2.0 split into TF32 with no
 // remainder, and 1/||w|| = 0.5.  Above DMAX the forward streams 128-deep
-// chunks (chunked_cosine); the wide, cluster and chunked routes all form
-// its bits.
+// chunks (chunked_cosine); the wide, cluster and passes routes all form
+// its bits (the passes route through half_dots, cosine_dots' instructions
+// for each cosine).
 // Rows of e and W whose length is a multiple of 4 are staged with 16-byte
 // cp.async copies; other D take 4-byte copies (VEC = 1).
 
@@ -979,173 +986,571 @@ __device__ __forceinline__ void de_cluster_block(float* smem, int row_tile, int 
   cluster_wait();  // no block leaves while a peer may read its shared memory
 }
 
-// D > CMAX.  The cosine tiles stream the depth through chunked_cosine (the
-// forward's chunks, so the cosines keep the forward's bits), and the second
-// products run over output depth chunks of OC = 32 * WARPS, warp w taking
-// the depths [32 w, 32 w + 32) of each: the block loops over the output
-// chunks and recomputes the cosine tiles for each, so its registers stay
-// as they are for D <= DMAX and it issues about (n_oc + 1) / 2 times the
-// cosine work of one pass.  xo holds the output chunk's other operand.
-constexpr int OC = 32 * WARPS;
+// D > CMAX: a cluster of n_c = passes_cluster(D) blocks walks the depth in
+// P = n_passes(D) passes (flash_aam_cosine.cuh: the depth in passes), block
+// `rank` on slice j n_c + rank in pass j.  A block of the cluster route's
+// size holds one 32 x 256 accumulator in its 128 registers a thread, and a
+// block here outputs P slices; so it takes half a tile, TH = 16 of its
+// batch rows (dê) or classes (dW), and accumulates a 16 x 256 slice for
+// two passes at once: the same 32 floats a thread.  Each tile step forms
+// that half tile's cosines over every depth pass (half_dots: cosine_dots'
+// instructions and order, so chunked_cosine's bits), so a pass forms each
+// cosine tile once (twice past two passes: output groups of two, each
+// forming it again).  The two halves of a tile are two clusters.  The
+// cosine (four 128-deep chunks a block a tile step) and the exchange set
+// the pace, so the share of each slot's partials is read in whole quads by
+// every thread at once into shared memory (add_partials), each slot then
+// summed in chunk order there; the a half tile is shared out as on the
+// cluster route past CPORT.  1/||w|| comes from bwd_norms_kernel, launched
+// first.  Both tiles stream chunk by chunk through two slots, the next
+// chunk's copy in flight while the current one's MMAs run; past the last
+// depth pass, the second product reads the group's output slices of the
+// streamed tile: the last pass's where it is one, else a copy staged
+// again (tb2, and tb when neither is the last).  The geometry n_c, P comes
+// in as kernel parameters, in the constant bank, not in registers, which
+// the accumulators and the cosine fill.
+constexpr int TH = 16;            // the batch rows (dê) or classes (dW) of a half tile
+constexpr int SLOTS_H = TH * TC;  // its logits: 512
+constexpr int SHARE_H = (SLOTS_H + CLUSTER_PORTABLE) / (CLUSTER_PORTABLE + 1);  // ceil(512 / 9)
+constexpr int N4 = 1;             // quads of partials in flight a thread (add_partials)
 
-static_assert(OC == SW, "the cluster route's slices are these output chunks: one order of dW's "
-                        "projection");
+static_assert(TB == TC && SLOTS_H == TB * TH, "a half tile is half a tile either way");
 
-// The dW pass for D > CMAX, one block per TC-class tile.  For each output
-// chunk, dw_hat's columns of it are written to dw unprojected and their
-// share of proj = dw_hat . w_hat is added to projs in chunk order; a last
-// sweep then applies dW = (dw_hat - proj w_hat) / ||w|| in place.
+// The first row and class of the half tile's 16 x 8 MMA tile ti (0..3):
+// the dê pass's half tile is TH rows by TC classes (four tiles along the
+// classes), the dW pass's TB rows by TH classes (two by two).
+template <bool DW>
+__device__ __forceinline__ int half_m0(int ti) { return DW ? 16 * (ti >> 1) : 0; }
+
+template <bool DW>
+__device__ __forceinline__ int half_n0(int ti) { return DW ? 8 * (ti & 1) : 8 * ti; }
+
+// The row and class in the half tile of published slot s (0..511), thread
+// s / 2's dot[s % 2] (half_dots).
+template <bool DW>
+__device__ __forceinline__ int half_row(int s) {
+  const int u = s >> 1;
+  return half_m0<DW>(u >> 5 & 3) + ((u & 31) >> 2) + 8 * (u >> 7);
+}
+
+template <bool DW>
+__device__ __forceinline__ int half_col(int s) {
+  const int u = s >> 1;
+  return half_n0<DW>(u >> 5 & 3) + 2 * (u & 3) + (s & 1);
+}
+
+// cosine_dots for a half tile of 128-deep chunks: the rows of `rows` (TH
+// of them in the dê pass, TB in the dW pass) against the classes of `cls`
+// (TC; TH).  Warp w computes the 16 x 8 tile w % 4 over the half depth
+// w / 4 as cosine_dots does (16-deep 3xTF32 steps added in order), keeps
+// row g + 8 (w / 4) of it and hands the other to warp w ^ 4 through xch
+// (WARPS x 2 x 32 floats); dot[q] = its own half's sum + the other's,
+// slot 2 threadIdx.x + q (half_row, half_col).  The two warps of a tile
+// meet at named barrier 1 + tile.
+template <bool DW>
+__device__ __forceinline__ void half_dots(float (&dot)[2], const float* rows, const float* cls,
+                                          float* xch) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ti = warp & 3;
+  const int kh = warp >> 2;
+  float sum[1][1][4] = {};
+#pragma unroll 2
+  for (int kc = 0; kc < KC / 2; kc += 16) {
+    float chunk[1][1][4] = {};
+    tf32x3::warp_mma_k16<1, 1>(chunk, rows, KC, half_m0<DW>(ti), cls, KC, half_n0<DW>(ti),
+                               kh * (KC / 2) + kc);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sum[0][0][q] = __fadd_rn(sum[0][0][q], chunk[0][0][q]);
+  }
+  // keep row g + 8 kh (accumulators 2 kh, 2 kh + 1), hand the other over
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    dot[q] = kh ? sum[0][0][2 + q] : sum[0][0][q];
+    xch[(warp * 2 + q) * 32 + lane] = kh ? sum[0][0][q] : sum[0][0][2 + q];
+  }
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + ti) : "memory");
+#pragma unroll
+  for (int q = 0; q < 2; ++q) dot[q] = __fadd_rn(dot[q], xch[((warp ^ 4) * 2 + q) * 32 + lane]);
+}
+
+// The passes route's shared memory: 105,224 bytes, two blocks an SM.
+struct PassesSmem {
+  float* sb;        // the stationary half tile's chunk slots: [2][TH][KC]
+  float* tb;        // the streamed tile's chunk slots, a slice: [2][TB][KC]
+  float* tb2;       // a second slice of the streamed tile: [2][TB][KC]
+  float* at_big;    // [TB][TC]
+  float* at_small;  // [TB][TC]
+  float* xch;       // [2][WARPS][2][32]
+  float* stash;     // at_big .. xch: free while the partials are read
+  float* pub;       // [2][2][SLOTS_H], published
+  float* apub;      // [2][SHARE_H], published
+  float* rinv;      // [TC]
+  float* projp;     // [2][WARPS][TH]
+  float* projx;     // [2][TH], published
+  float* projr;     // [TH], the projection, slices so far
+  float* dotr;      // [THREADS], the share's running dots
+};
+
+constexpr int PASSES_STASH = 2 * TB * TC + 2 * WARPS * 64;
+
+__device__ __forceinline__ PassesSmem passes_smem(float* smem) {
+  PassesSmem m;
+  m.sb = smem;
+  m.tb = m.sb + 2 * TH * KC;
+  m.tb2 = m.tb + 2 * TB * KC;
+  m.at_big = m.tb2 + 2 * TB * KC;
+  m.at_small = m.at_big + TB * TC;
+  m.xch = m.at_small + TB * TC;
+  m.stash = m.at_big;
+  m.pub = m.at_big + PASSES_STASH;
+  m.apub = m.pub + 2 * 2 * SLOTS_H;
+  m.rinv = m.apub + 2 * SHARE_H;
+  m.projp = m.rinv + TC;
+  m.projx = m.projp + 2 * WARPS * TH;
+  m.projr = m.projx + 2 * TH;
+  m.dotr = m.projr + TH;
+  return m;
+}
+
+__host__ __device__ inline int passes_smem_floats() {
+  return 2 * TH * KC + 4 * TB * KC + PASSES_STASH + 2 * 2 * SLOTS_H + 2 * SHARE_H + TC +
+         2 * WARPS * TH + 2 * TH + TH + THREADS;
+}
+
+// rinv[c] = chunked_cosine's 1/||W row c|| for every class, one block per
+// TC-class tile streaming its chunks (the passes route's norms).
 template <int VEC>
-__device__ __forceinline__ void dw_chunks_block(float* smem, int tile,
+__global__ void __launch_bounds__(THREADS)
+bwd_norms_kernel(const float* __restrict__ w, int C, int D, float* __restrict__ rinv) {
+  __shared__ __align__(16) float ws[TC * KC];
+  const int col0 = blockIdx.x * TC;
+  float sq = 0.0f;
+  for (int k = 0; k < n_chunks(D); ++k) {
+    const int d0 = k * KC;
+    if (k) __syncthreads();  // every warp is done with chunk k - 1
+    tf32x3::stage_rows<VEC>(ws, KC, w + d0, D, col0, TC, C, D - d0);
+    tf32x3::commit();
+    tf32x3::wait_pending<0>();
+    __syncthreads();
+    const float t = tile_sq(ws, KC);
+    sq = k ? __fadd_rn(sq, t) : t;
+  }
+  const int c = col0 + (threadIdx.x >> 3);
+  if ((threadIdx.x & 7) == 0 && c < C) rinv[c] = __frsqrt_rn(fmaxf(sq, 1e-24f));
+}
+
+// The norms of the TC classes from col0 (bwd_norms_kernel's; those past C
+// as a zero row's), into rinv: seen by the block after the next
+// __syncthreads.
+__device__ __forceinline__ void load_rnorms(const float* __restrict__ rinv_g, int C, int col0,
+                                            float* rinv) {
+  if ((int)threadIdx.x < TC)
+    rinv[threadIdx.x] =
+        col0 + (int)threadIdx.x < C ? rinv_g[col0 + threadIdx.x] : __frsqrt_rn(1e-24f);
+}
+
+// Chunk k (depths [k KC, k KC + KC), zeros past D) of the stationary rows
+// [s_row0, s_row0 + TH) of s_x (s_n rows) and of the streamed rows
+// [t_row0, t_row0 + TB) of t_x (t_n rows), into slot k % 2 of sb and tb
+// (a slice's layout: chunk 2 s + c of slice s lies in slot c), as one
+// group.
+template <int VEC>
+__device__ __forceinline__ void stage_chunk(const PassesSmem& m, const float* __restrict__ s_x,
+                                            int s_row0, int s_n, const float* __restrict__ t_x,
+                                            int t_row0, int t_n, int D, int k) {
+  const int d0 = k * KC;
+  const int off = d0 < D ? d0 : 0;  // a chunk at or past D is all zeros: no byte is read
+  tf32x3::stage_rows<VEC>(m.sb + (k & 1) * TH * KC, KC, s_x + off, D, s_row0, TH, s_n, D - d0);
+  tf32x3::stage_rows<VEC>(m.tb + (k & 1) * TB * KC, KC, t_x + off, D, t_row0, TB, t_n, D - d0);
+  tf32x3::commit();
+}
+
+// Block `rank`'s share of a half tile's slots, one a thread.
+__device__ __forceinline__ Share half_share(int rank, int n_c) {
+  const int L = (SLOTS_H + n_c - 1) / n_c;
+  return {rank * L, min(rank * L + L, SLOTS_H)};
+}
+
+// Add the partials of chunks [k0, k1) onto the running dot of each slot of
+// share sh, dotr[t] for thread t of the share (set by chunk 0).  Chunk k's
+// lie in pass j = k / (2 n_c), block k / 2 - j n_c's publish buffer j % 2,
+// chunk k % 2 of it.  A slot's partials lie in k1 - k0 peers, and one
+// thread reading them in chunk order would wait for each round trip in
+// turn; so every thread of the block first reads whole quads
+// of the share's slots (cluster_ld4, N4 in flight) into stash
+// ([k1 - k0][nq quads][4]: at most 2400 floats at any D, under the
+// PASSES_STASH of the layout), and past a __syncthreads each slot's thread
+// adds its own from there in chunk order.  The caller syncs before the next use of
+// stash.
+__device__ __forceinline__ void add_partials(const float* pub, const Share& sh, int k0, int k1,
+                                             int n_c, float* dotr, float* stash) {
+  const int q0 = sh.i0 >> 2;
+  const int nq = ((sh.i1 + 3) >> 2) - q0;
+  const int n = (k1 - k0) * nq;
+  for (int i0 = threadIdx.x; i0 < n; i0 += N4 * THREADS) {
+    float4 v[N4];
+#pragma unroll
+    for (int u = 0; u < N4; ++u) {
+      const int i = i0 + u * THREADS;
+      if (i < n) {
+        const int k = k0 + i / nq;
+        const int j = k / (2 * n_c);
+        v[u] = cluster_ld4(pub + (2 * (j & 1) + (k & 1)) * SLOTS_H + 4 * (q0 + i % nq),
+                           (k >> 1) - j * n_c);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < N4; ++u)
+      if (i0 + u * THREADS < n) *reinterpret_cast<float4*>(stash + 4 * (i0 + u * THREADS)) = v[u];
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < sh.i1 - sh.i0) {
+    const float* mine = stash + sh.i0 + t - 4 * q0;
+    float dot = k0 ? dotr[t] : 0.0f;
+    for (int k = k0; k < k1; ++k) {
+      const float v = mine[(k - k0) * 4 * nq];
+      dot = k ? __fadd_rn(dot, v) : v;
+    }
+    dotr[t] = dot;
+  }
+}
+
+// One tile step's cosines: in depth pass j the block stages and dots its
+// slice j n_c + rank of the stationary and streamed rows, chunk by chunk
+// through the two slots (the next chunk's copy in flight while the current
+// one's MMAs run, as chunked_cosine streams them), each chunk's partials
+// published in buffer j % 2.  Up to two passes each has a buffer of its
+// own, so the passes publish first and meet at one cluster barrier; with
+// more, each pass meets at its own, and a buffer is rewritten only past the
+// next pass's, which the peers reach after reading it.  Past each barrier
+// the block adds the partials published since the last (add_partials).
+// Past the last it stages the streamed rows' slices of passes re_a into tb2
+// and re_b into tb (-1: none), which the caller waits for before its second
+// product.  The dots are seen by the block after the next __syncthreads.
+template <int VEC, bool DW>
+__device__ __forceinline__ void passes_cosine(const PassesSmem& m, const Share& sh,
+                                              const float* __restrict__ s_x, int s_row0,
+                                              int s_n, const float* __restrict__ t_x,
+                                              int t_row0, int t_n, int D, int n_c, int P,
+                                              int rank, int re_a, int re_b) {
+  const int n_ch = n_chunks(D);
+  __syncthreads();  // every warp is done with sb, tb and tb2
+  stage_chunk<VEC>(m, s_x, s_row0, s_n, t_x, t_row0, t_n, D, 2 * rank);
+  int j0 = 0;  // the first pass whose partials are not added yet
+  for (int i = 0; i < 2 * P; ++i) {
+    const int j = i >> 1;
+    const int c = i & 1;
+    const int k = 2 * (j * n_c + rank) + c;
+    tf32x3::wait_pending<0>();
+    __syncthreads();  // chunk k has landed, and every warp is done with the other slot
+    if (i + 1 < 2 * P)
+      stage_chunk<VEC>(m, s_x, s_row0, s_n, t_x, t_row0, t_n, D, c ? k - 1 + 2 * n_c : k + 1);
+    if (k < n_ch) {
+      const float* sc = m.sb + c * TH * KC;
+      const float* tc = m.tb + c * TB * KC;
+      float dot[2];
+      half_dots<DW>(dot, DW ? tc : sc, DW ? sc : tc, m.xch + c * WARPS * 64);
+      *reinterpret_cast<float2*>(m.pub + (2 * (j & 1) + c) * SLOTS_H + 2 * threadIdx.x) =
+          make_float2(dot[0], dot[1]);
+    }
+    if (c == 0 || (P <= 2 && j + 1 < P)) continue;
+    cluster_arrive();
+    cluster_wait();  // every block's partials so far; every warp here is past sb and tb
+    if (j + 1 == P && (re_a >= 0 || re_b >= 0)) {
+      if (re_a >= 0) stage_slice<VEC>(m.tb2, t_x, t_row0, t_n, D, re_a * n_c + rank);
+      if (re_b >= 0) stage_slice<VEC>(m.tb, t_x, t_row0, t_n, D, re_b * n_c + rank);
+      tf32x3::commit();
+    }
+    add_partials(m.pub, sh, 2 * n_c * j0, min(2 * n_c * (j + 1), n_ch), n_c, m.dotr, m.stash);
+    j0 = j + 1;
+  }
+}
+
+// a of the thread's slot of share sh (half_row, half_col from row0, col0),
+// as a_tile forms it (0 outside B and C; SCALE folds 1/||w|| in; rinv from
+// col0), published as its TF32 parts: big at apub[s - i0], small at
+// apub[SHARE_H + s - i0].
+template <bool DW, bool SCALE>
+__device__ __forceinline__ void publish_half(float dot, const Share& sh,
+                                             const int* __restrict__ labels,
+                                             const float* __restrict__ lse,
+                                             const float* __restrict__ g, int B, int C,
+                                             int row0, int col0, const float* rinv,
+                                             const Margin& mg, float* apub) {
+  const int s = share_slot(sh);
+  if (s >= sh.i1) return;
+  const int r = row0 + half_row<DW>(s);
+  const int cls = half_col<DW>(s);
+  const int c = col0 + cls;
+  float a = 0.0f;
+  if (r < B && c < C) {
+    const float ri = rinv[cls];
+    a = dlogit(__fmul_rn(dot, ri), c == labels[r], lse[r], g[r], mg);
+    if (SCALE) a = __fmul_rn(a, ri);
+  }
+  const tf32x3::Split sp = tf32x3::split(a);
+  apub[s - sh.i0] = __uint_as_float(sp.big);
+  apub[SHARE_H + s - sh.i0] = __uint_as_float(sp.small);
+}
+
+// The whole a half tile from the shares the cluster published
+// (publish_half; slot s in block s / L's share), into the swizzled
+// at_big[row][class] and at_small[row][class].  The caller syncs before
+// reading them.
+template <bool DW>
+__device__ __forceinline__ void gather_half(const float* apub, int n_c, float* at_big,
+                                            float* at_small) {
+  const int L = (SLOTS_H + n_c - 1) / n_c;
+  float big[2], small[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int s = (int)threadIdx.x + THREADS * u;
+    const int r = s / L;
+    big[u] = cluster_ld(apub + (s - r * L), r);
+    small[u] = cluster_ld(apub + SHARE_H + (s - r * L), r);
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int s = (int)threadIdx.x + THREADS * u;
+    at_big[at(half_row<DW>(s), half_col<DW>(s), TC)] = big[u];
+    at_small[at(half_row<DW>(s), half_col<DW>(s), TC)] = small[u];
+  }
+}
+
+// The dW pass for D > CMAX, one cluster per TC-class tile and half of it:
+// the TH classes from c0.  For each output group o (its depth passes
+// a = 2 o and b = a + 1, where b < P), the block accumulates dw_hat over
+// its two output slices a n_c + rank and b n_c + rank across the batch
+// tiles, then adds each slice's share of the projection dw_hat . w_hat
+// (the lanes of a class, then the warps in order; w_hat from W in global
+// memory) to the running projection, which every block carries in slice
+// order (the group's slices read from its peers past a cluster barrier).
+// The projection needs every slice, so past two passes the slices of the
+// earlier groups are written unprojected and projected in place at the
+// end, when the last group's are written from their accumulators.
+template <int VEC>
+__device__ __forceinline__ void dw_passes_block(const PassesSmem& m, int tile, int half, int rank,
                                                 const float* __restrict__ e,
                                                 const float* __restrict__ w,
                                                 const int* __restrict__ labels,
                                                 const float* __restrict__ lse,
-                                                const float* __restrict__ g, int B, int C, int D,
-                                                const Margin& mg, float* __restrict__ dw) {
-  float* const eb[2] = {smem, smem + TB * KC};                    // [2][TB][KC]
-  float* const wb[2] = {smem + 2 * TB * KC, smem + 2 * TB * KC + TC * KC};  // [2][TC][KC]
-  float* xo = wb[1] + TC * KC;         // [TB][OC]: e's output chunk, then W's
-  float* at_big = xo + TB * OC;        // [TB][TC]
-  float* at_small = at_big + TB * TC;  // [TB][TC]
-  float* rinv = at_small + TB * TC;    // [TC]
-  float* projp = rinv + TC;            // [WARPS][TC]
-  float* projs = projp + WARPS * TC;   // [TC], proj summed over the output chunks
-  float* xch = projs + TC;             // [WARPS][4][32]
-
+                                                const float* __restrict__ g,
+                                                const float* __restrict__ rinv_g, int B, int C,
+                                                int D, int n_c, int P, const Margin& mg,
+                                                float* __restrict__ dw) {
+  const int c0 = tile * TC + TH * half;
+  if (c0 >= C) return;  // the whole cluster: no class here
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int col0 = tile * TC;
   const int n_bt = (B + TB - 1) / TB;
-  const int n_oc = (D + OC - 1) / OC;
+  const int n_s = n_slices(D);
+  const int G = (P + 1) / 2;
+  const Share sh = half_share(rank, n_c);
+  load_rnorms(rinv_g, C, c0, m.rinv);
 
-  for (int oc = 0; oc < n_oc; ++oc) {
-    const int d0 = oc * OC;
-    float acc[2][4][4] = {};
+  // acc[x][0][j][q] holds class g + 8 (q / 2) (g = lane / 4) at depth
+  // s_x SW + 32 warp + 8 j + 2 (lane % 4) + q % 2 of output slice s_x
+  auto w_hat = [&](int cls, size_t d) {
+    return c0 + cls < C && d < (size_t)D ? __fmul_rn(w[(size_t)(c0 + cls) * D + d], m.rinv[cls])
+                                         : 0.0f;
+  };
+  float acc[2][1][4][4];
+  for (int o = 0; o < G; ++o) {
+    const int a = 2 * o;
+    const int nx = a + 1 < P ? 2 : 1;  // output slices in the group
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[x][0][j][q] = 0.0f;
     for (int bt = 0; bt < n_bt; ++bt) {
-      const Rows rd = row_data(labels, lse, g, B, bt * TB);
-      float dot[4];
-      if (oc == 0 && bt == 0) {
-        chunked_cosine<VEC, true>(dot, e, B, 0, w, C, col0, D, eb, wb, rinv, xch);
-        __syncthreads();  // rinv
-      } else {
-        chunked_cosine<VEC, false>(dot, e, B, bt * TB, w, C, col0, D, eb, wb, rinv, xch);
-      }
-      a_tile<false>(dot, rinv, rd, C, col0, mg, at_big, at_small);
-      tf32x3::stage_rows<VEC>(xo, OC, e + d0, D, bt * TB, TB, B, D - d0);
-      tf32x3::commit();
-      tf32x3::wait_pending<0>();
+      // the last depth pass's slice is the last group's; the others are
+      // staged again
+      passes_cosine<VEC, true>(m, sh, w, c0, C, e, bt * TB, B, D, n_c, P, rank,
+                               a + 1 < P ? a : -1, nx == 2 && a + 2 < P ? a + 1 : -1);
+      publish_half<true, false>(m.dotr[threadIdx.x], sh, labels, lse, g, B, C, bt * TB, c0,
+                                m.rinv, mg, m.apub);
+      cluster_arrive();
+      cluster_wait();  // every block's a share
+      gather_half<true>(m.apub, n_c, m.at_big, m.at_small);
+      tf32x3::wait_pending<0>();  // the output slices staged again
       __syncthreads();
-      tf32x3::warp_mma_k32<K_ROWS>(acc, at_big, at_small, xo, OC, 32 * warp);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float* tx = x == 0 && a + 1 < P ? m.tb2 : m.tb;
+        if (x < nx && ((a + x) * n_c + rank) * SW + 32 * warp < D)
+          tf32x3::warp_mma_k32<K_ROWS, 1>(acc[x], m.at_big, m.at_small,
+                                          tx + (warp >> 2) * TB * KC, KC, 32 * (warp & 3));
+      }
     }
 
-    // acc[i][j][q] holds class 16 i + lane / 4 + 8 (q / 2) at depth
-    // d0 + 32 warp + 8 j + 2 (lane % 4) + q % 2
-    __syncthreads();  // every warp is done with e's chunk
-    tf32x3::stage_rows<VEC>(xo, OC, w + d0, D, col0, TC, C, D - d0);
-    tf32x3::commit();
-    tf32x3::wait_pending<0>();
-    __syncthreads();
+    // each output slice's projection share (zero past D)
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int x = 0; x < 2; ++x)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int cls = 16 * i + (lane >> 2) + 8 * h;
-        const int c = col0 + cls;
+        const int cls = (lane >> 2) + 8 * h;
+        const size_t d0 = (size_t)((a + x) * n_c + rank) * SW + 32 * warp;
         float proj = 0.0f;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
-            const int dl = 32 * warp + 8 * j + 2 * (lane & 3) + q;
-            const float v = __fmul_rn(xo[at(cls, dl, OC)], rinv[cls]);
-            const float a = acc[i][j][2 * h + q];
-            proj = fmaf(a, v, proj);
-            if (c < C && d0 + dl < D) dw[(size_t)c * D + d0 + dl] = a;
+            if (x < nx)
+              proj = fmaf(acc[x][0][j][2 * h + q], w_hat(cls, d0 + 8 * j + 2 * (lane & 3) + q),
+                          proj);
           }
+        // the 4 lanes of a class are neighbours in the warp
         proj += __shfl_xor_sync(FULL, proj, 1);
         proj += __shfl_xor_sync(FULL, proj, 2);
-        if ((lane & 3) == 0) projp[warp * TC + cls] = proj;
+        if ((lane & 3) == 0) m.projp[(x * WARPS + warp) * TH + cls] = proj;
       }
     __syncthreads();
-    if (threadIdx.x < TC) {
+    if ((int)threadIdx.x < 2 * TH) {
       float proj = 0.0f;
-      for (int k = 0; k < WARPS; ++k) proj += projp[k * TC + threadIdx.x];
-      projs[threadIdx.x] = oc ? __fadd_rn(projs[threadIdx.x], proj) : proj;
+      for (int k = 0; k < WARPS; ++k) proj += m.projp[((threadIdx.x / TH) * WARPS + k) * TH +
+                                                     threadIdx.x % TH];
+      m.projx[threadIdx.x] = proj;
+    }
+    if (o + 1 < G) {  // dw_hat of the group's slices, projected at the end
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + (lane >> 2) + 8 * h;
+          const size_t row = (size_t)c * D + ((a + x) * n_c + rank) * SW + 32 * warp;
+          if (c >= C) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              dw[row + 8 * j + 2 * (lane & 3) + q] = acc[x][0][j][2 * h + q];
+        }
+    }
+    cluster_arrive();
+    cluster_wait();  // every block's share of the group's slices
+    if ((int)threadIdx.x < TH) {
+      for (int x = 0; x < nx; ++x)
+        for (int r = 0; r < n_c && (a + x) * n_c + r < n_s; ++r) {
+          const float v = cluster_ld(m.projx + x * TH + threadIdx.x, r);
+          m.projr[threadIdx.x] = (a + x) * n_c + r ? __fadd_rn(m.projr[threadIdx.x], v) : v;
+        }
     }
   }
 
-  // dW = (dw_hat - proj w_hat) / ||w|| over the tile's rows, in place (the
-  // barrier also makes the block's own dw_hat writes visible to it)
-  __syncthreads();
-  const int rows = min(TC, C - col0);
-  for (int i = threadIdx.x; i < rows * D; i += THREADS) {
-    const int cls = i / D;
-    const size_t at_dw = (size_t)col0 * D + i;
-    const float ri = rinv[cls];
-    const float what = __fmul_rn(w[at_dw], ri);
-    dw[at_dw] = __fmul_rn(__fsub_rn(dw[at_dw], __fmul_rn(projs[cls], what)), ri);
-  }
-}
-
-// The de pass for D > CMAX, one block per (batch tile, class split):
-// part[split] = a[rows, split] w_hat, output chunk by output chunk.
-template <int VEC>
-__device__ __forceinline__ void de_chunks_block(float* smem, int row_tile, int split,
-                                                const float* __restrict__ e,
-                                                const float* __restrict__ w,
-                                                const int* __restrict__ labels,
-                                                const float* __restrict__ lse,
-                                                const float* __restrict__ g, int B, int C, int D,
-                                                int tiles_per_split, const Margin& mg,
-                                                float* __restrict__ part) {
-  float* const eb[2] = {smem, smem + TB * KC};                    // [2][TB][KC]
-  float* const wb[2] = {smem + 2 * TB * KC, smem + 2 * TB * KC + TC * KC};  // [2][TC][KC]
-  float* xo = wb[1] + TC * KC;         // [TC][OC]: W's output chunk
-  float* at_big = xo + TC * OC;        // [TB][TC]
-  float* at_small = at_big + TB * TC;  // [TB][TC]
-  float* rinv = at_small + TB * TC;    // [TC]
-  float* xch = rinv + TC;              // [WARPS][4][32]
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = row_tile * TB;
-  const int n_tiles = (C + TC - 1) / TC;
-  const int tile_lo = split * tiles_per_split;
-  const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
-  const int n_oc = (D + OC - 1) / OC;
-  const Rows rd = row_data(labels, lse, g, B, row0);
-  float* out = part + (size_t)split * B * D;
-
-  for (int oc = 0; oc < n_oc; ++oc) {
-    const int d0 = oc * OC;
-    float acc[2][4][4] = {};
-    for (int t = tile_lo; t < tile_hi; ++t) {
-      float dot[4];
-      chunked_cosine<VEC, true>(dot, e, B, row0, w, C, t * TC, D, eb, wb, rinv, xch);
-      __syncthreads();  // rinv
-      a_tile<true>(dot, rinv, rd, C, t * TC, mg, at_big, at_small);
-      tf32x3::stage_rows<VEC>(xo, OC, w + d0, D, t * TC, TC, C, D - d0);
-      tf32x3::commit();
-      tf32x3::wait_pending<0>();
-      __syncthreads();
-      tf32x3::warp_mma_k32<MK_ROWS>(acc, at_big, at_small, xo, OC, 32 * warp);
+  __syncthreads();  // projr
+  cluster_arrive();  // this block reads no peer's shared memory any more
+  // dW = (dw_hat - proj w_hat) / ||w||: the last group's slices from their
+  // accumulators, the earlier ones in place (each thread rereads what it
+  // wrote)
+  const int a = 2 * (G - 1);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int cls = (lane >> 2) + 8 * h;
+    const int c = c0 + cls;
+    if (c >= C) continue;
+    const float proj = m.projr[cls];
+    const float ri = m.rinv[cls];
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const size_t d0 = (size_t)((a + x) * n_c + rank) * SW + 32 * warp;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const size_t d = d0 + 8 * j + 2 * (lane & 3) + q;
+          if (a + x < P && d < (size_t)D)
+            dw[(size_t)c * D + d] = __fmul_rn(
+                __fsub_rn(acc[x][0][j][2 * h + q], __fmul_rn(proj, w_hat(cls, d))), ri);
+        }
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + 16 * i + (lane >> 2) + 8 * h;
-        if (r >= B) continue;
+    for (int o = 0; o < G - 1; ++o)
+      for (int x = 0; x < 2; ++x) {
+        const size_t row = (size_t)c * D + ((2 * o + x) * n_c + rank) * SW + 32 * warp;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
-            const int d = d0 + 32 * warp + 8 * j + 2 * (lane & 3) + q;
-            if (d < D) out[(size_t)r * D + d] = acc[i][j][2 * h + q];
+            const size_t k = row + 8 * j + 2 * (lane & 3) + q;
+            dw[k] = __fmul_rn(__fsub_rn(dw[k], __fmul_rn(proj, __fmul_rn(w[k], ri))), ri);
           }
       }
   }
+  cluster_wait();  // no block leaves while a peer may read its shared memory
+}
+
+// The dê pass for D > CMAX, one cluster per (batch tile, half, class split,
+// output group): the TH batch rows from r0 of the tile, the group's depth
+// passes a = 2 group and b = a + 1 (where b < P).  The block walks the
+// split's W tiles, forming each tile's cosines over the depth passes, and
+// writes part[split]'s depths of its output slices a n_c + rank and
+// b n_c + rank.
+template <int VEC>
+__device__ __forceinline__ void de_passes_block(const PassesSmem& m, int row_tile, int half,
+                                                int split, int group, int rank,
+                                                const float* __restrict__ e,
+                                                const float* __restrict__ w,
+                                                const int* __restrict__ labels,
+                                                const float* __restrict__ lse,
+                                                const float* __restrict__ g,
+                                                const float* __restrict__ rinv_g, int B, int C,
+                                                int D, int n_c, int P, int tiles_per_split,
+                                                const Margin& mg, float* __restrict__ part) {
+  const int r0 = row_tile * TB + TH * half;
+  if (r0 >= B) return;  // the whole cluster: no batch row here
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_tiles = (C + TC - 1) / TC;
+  const int tile_lo = split * tiles_per_split;
+  const int tile_hi = min(tile_lo + tiles_per_split, n_tiles);
+  const int a = 2 * group;
+  const int nx = a + 1 < P ? 2 : 1;  // output slices in the group
+  const Share sh = half_share(rank, n_c);
+
+  float acc[2][1][4][4] = {};
+  for (int t = tile_lo; t < tile_hi; ++t) {
+    // every warp is past its reads of rinv (publish_half) at tile t - 1
+    load_rnorms(rinv_g, C, t * TC, m.rinv);
+    // the last depth pass's slice is the last group's; the others are
+    // staged again
+    passes_cosine<VEC, false>(m, sh, e, r0, B, w, t * TC, C, D, n_c, P, rank,
+                              a + 1 < P ? a : -1, nx == 2 && a + 2 < P ? a + 1 : -1);
+    publish_half<false, true>(m.dotr[threadIdx.x], sh, labels, lse, g, B, C, r0, t * TC,
+                              m.rinv, mg, m.apub);
+    cluster_arrive();
+    cluster_wait();  // every block's a share
+    gather_half<false>(m.apub, n_c, m.at_big, m.at_small);
+    tf32x3::wait_pending<0>();  // the output slices staged again
+    __syncthreads();
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float* tx = x == 0 && a + 1 < P ? m.tb2 : m.tb;
+      if (x < nx && ((a + x) * n_c + rank) * SW + 32 * warp < D)
+        tf32x3::warp_mma_k32<MK_ROWS, 1>(acc[x], m.at_big, m.at_small,
+                                         tx + (warp >> 2) * TC * KC, KC, 32 * (warp & 3));
+    }
+  }
+  cluster_arrive();  // this block reads no peer's shared memory any more
+  float* out = part + (size_t)split * B * D;
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + (lane >> 2) + 8 * h;
+      const int d0 = ((a + x) * n_c + rank) * SW + 32 * warp;
+      if (x >= nx || r >= B) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int d = d0 + 8 * j + 2 * (lane & 3) + q;
+          if (d < D) out[(size_t)r * D + d] = acc[x][0][j][2 * h + q];
+        }
+    }
+  cluster_wait();  // no block leaves while a peer may read its shared memory
 }
 
 // Both passes in one launch: blocks [0, n_dw) run the dW pass on class tile
@@ -1219,22 +1624,34 @@ bwd_cluster_kernel(const float* __restrict__ e, const float* __restrict__ w,
   }
 }
 
-// The two passes for D > CMAX, on the tiles kernel's blocks.
+// The two passes for D > CMAX, launched in clusters of n_c =
+// passes_cluster(D) blocks walking P = n_passes(D) depth passes, de
+// clusters first, as bwd_cluster_kernel: one for each (batch tile, half,
+// split, output group), the group fastest, then one for each (class tile,
+// half); two blocks an SM.
 template <int VEC>
 __global__ void __launch_bounds__(THREADS, 2)
-bwd_chunks_kernel(const float* __restrict__ e, const float* __restrict__ w,
+bwd_passes_kernel(const float* __restrict__ e, const float* __restrict__ w,
                   const int* __restrict__ labels, const float* __restrict__ lse,
-                  const float* __restrict__ g, int B, int C, int D, int tiles_per_split,
-                  Margin mg, float* __restrict__ part, float* __restrict__ dw) {
+                  const float* __restrict__ g, const float* __restrict__ rinv_g, int B, int C,
+                  int D, int n_c, int P, int tiles_per_split, Margin mg,
+                  float* __restrict__ part, float* __restrict__ dw) {
   extern __shared__ __align__(16) float smem[];
-  const int n_dw = (C + TC - 1) / TC;
-  if ((int)blockIdx.x < n_dw) {
-    dw_chunks_block<VEC>(smem, blockIdx.x, e, w, labels, lse, g, B, C, D, mg, dw);
-  } else {
-    const int i = blockIdx.x - n_dw;
+  const PassesSmem m = passes_smem(smem);
+  const int n_dw = 2 * ((C + TC - 1) / TC);
+  const int n_de = (int)gridDim.x / n_c - n_dw;
+  const int unit = blockIdx.x / n_c;
+  const int rank = cluster_rank();
+  if (unit < n_de) {
+    const int G = (P + 1) / 2;
     const int n_rt = (B + TB - 1) / TB;
-    de_chunks_block<VEC>(smem, i % n_rt, i / n_rt, e, w, labels, lse, g, B, C, D,
-                         tiles_per_split, mg, part);
+    const int u = unit / G / 2;
+    de_passes_block<VEC>(m, u % n_rt, unit / G % 2, u / n_rt, unit % G, rank, e, w, labels,
+                         lse, g, rinv_g, B, C, D, n_c, P, tiles_per_split, mg, part);
+  } else {
+    const int u = unit - n_de;
+    dw_passes_block<VEC>(m, u / 2, u % 2, rank, e, w, labels, lse, g, rinv_g, B, C, D, n_c, P,
+                         mg, dw);
   }
 }
 
@@ -1269,10 +1686,10 @@ cudaError_t route(int D, const void** kernel, size_t* smem) {
     const cudaError_t err = allow_cluster(*kernel, D);
     if (err != cudaSuccess) return err;
   } else {
-    // the dW pass's layout again (the de pass's has no projection scratch)
-    *smem = sizeof(float) * (2 * (TB + TC) * KC + TB * OC + 2 * TB * TC + TC + WARPS * TC + TC +
-                             WARPS * 128);
-    *kernel = reinterpret_cast<const void*>(bwd_chunks_kernel<VEC>);
+    *smem = sizeof(float) * passes_smem_floats();
+    *kernel = reinterpret_cast<const void*>(bwd_passes_kernel<VEC>);
+    const cudaError_t err = allow_cluster(*kernel, D);
+    if (err != cudaSuccess) return err;
   }
   return cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem);
@@ -1283,7 +1700,11 @@ cudaError_t launch(const float* e, const float* w, const int* labels, const floa
                    const float* g, int B, int C, int D, int tiles_per_split, int n_splits,
                    const Margin& mg, float* part, float* de, float* dw, cudaStream_t st) {
   static_assert(TB == TC, "both passes stage three 32-row tiles");
-  const int blocks = (C + TC - 1) / TC + (B + TB - 1) / TB * n_splits;
+  // the passes route runs its clusters on half tiles, and a de cluster for
+  // each output group
+  const int halves = D > CMAX ? 2 : 1;
+  const int per_split = (B + TB - 1) / TB * (D > CMAX ? 2 * ((n_passes(D) + 1) / 2) : 1);
+  const int blocks = halves * ((C + TC - 1) / TC) + per_split * n_splits;
   const void* kernel;
   size_t smem;
   cudaError_t err = route<VEC>(D, &kernel, &smem);
@@ -1305,8 +1726,14 @@ cudaError_t launch(const float* e, const float* w, const int* labels, const floa
                                          g, B, C, D, tiles_per_split, mg, part, dw);
     if (err != cudaSuccess) return err;
   } else {
-    bwd_chunks_kernel<VEC><<<blocks, THREADS, smem, st>>>(e, w, labels, lse, g, B, C, D,
-                                                           tiles_per_split, mg, part, dw);
+    // the norms first, into the scratch past the splits' partials
+    float* rinv = part + (size_t)n_splits * B * D;
+    bwd_norms_kernel<VEC><<<(C + TC - 1) / TC, THREADS, 0, st>>>(w, C, D, rinv);
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config_of(passes_cluster(D), blocks, smem, st, &attr);
+    err = cudaLaunchKernelEx(&cfg, bwd_passes_kernel<VEC>, e, w, labels, lse, g, rinv, B, C, D,
+                             passes_cluster(D), n_passes(D), tiles_per_split, mg, part, dw);
+    if (err != cudaSuccess) return err;
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1323,24 +1750,34 @@ int flash_aam_bwd_block_rows() { return TB; }
 int flash_aam_bwd_block_classes() { return TC; }
 
 // The route that depth D takes: 0 bwd_tiles_kernel, 1 bwd_wide_kernel,
-// 2 bwd_chunks_kernel, 3 bwd_cluster_kernel.
+// 2 bwd_passes_kernel, 3 bwd_cluster_kernel.
 int flash_aam_bwd_route(int D) { return D <= DMAX ? 0 : D <= WMAX ? 1 : D <= CMAX ? 3 : 2; }
 
 // The blocks of one cluster of depth D's route: n_slices(D) on the cluster
-// route, 1 on the others.
-int flash_aam_bwd_cluster_size(int D) { return D > WMAX && D <= CMAX ? n_slices(D) : 1; }
+// route, passes_cluster(D) on the passes route, 1 on the others.
+int flash_aam_bwd_cluster_size(int D) {
+  return D <= WMAX ? 1 : D <= CMAX ? n_slices(D) : passes_cluster(D);
+}
 
-// The clusters of the cluster route for depth D that the current device
-// holds at once (cudaOccupancyMaxActiveClusters with the route's shared
-// memory; the 16-byte-copy kernel, as flash_aam_bwd_blocks_per_sm), or -1
-// off that route or on a CUDA error.
+// The depth passes of the passes route for depth D, 1 on the others.
+int flash_aam_bwd_passes(int D) { return D > CMAX ? n_passes(D) : 1; }
+
+// The floats of scratch that flash_aam_bwd needs past the splits'
+// partials: the passes route's norms, C of them.
+int flash_aam_bwd_scratch(int C, int D) { return D > CMAX ? C : 0; }
+
+// The clusters of the cluster or passes route for depth D that the current
+// device holds at once (cudaOccupancyMaxActiveClusters with the route's
+// shared memory; the 16-byte-copy kernel, as flash_aam_bwd_blocks_per_sm),
+// or -1 off those routes or on a CUDA error.
 int flash_aam_bwd_clusters(int D) {
   const void* kernel;
   size_t smem;
   int clusters = 0;
   cudaLaunchAttribute attr;
-  if (D <= WMAX || D > CMAX || route<4>(D, &kernel, &smem) != cudaSuccess) return -1;
-  const cudaLaunchConfig_t cfg = cluster_config(D, 1, smem, nullptr, &attr);
+  if (D <= WMAX || route<4>(D, &kernel, &smem) != cudaSuccess) return -1;
+  const cudaLaunchConfig_t cfg =
+      cluster_config_of(flash_aam_bwd_cluster_size(D), 1, smem, nullptr, &attr);
   if (cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg) != cudaSuccess)
     return -1;
   return clusters;
@@ -1363,9 +1800,9 @@ int flash_aam_bwd_blocks_per_sm(int D) {
 
 // e (B, D) f32, w (C, D) f32, labels (B,) i32, lse (B,) f32, g (B,) f32, all
 // contiguous on the card; part is scratch of n_splits * B * D floats with
-// n_splits = ceil(ceil(C / TC) / tiles_per_split); de (B, D) and dw (C, D)
-// f32 outputs.  Launches on `stream` and returns the cudaError_t of the
-// launches (0 on success).
+// n_splits = ceil(ceil(C / TC) / tiles_per_split), and C more past CMAX
+// (flash_aam_bwd_scratch); de (B, D) and dw (C, D) f32 outputs.  Launches on
+// `stream` and returns the cudaError_t of the launches (0 on success).
 int flash_aam_bwd(const void* e, const void* w, const void* labels, const void* lse,
                   const void* g, int B, int C, int D, int tiles_per_split,
                   int n_splits, float s, float cos_m, float sin_m, float th, float mm,

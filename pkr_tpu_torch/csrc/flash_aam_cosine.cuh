@@ -17,7 +17,7 @@
 //   e . w   = the chunks' cosine_dots, added with __fadd_rn in chunk order,
 //   1/||w|| = __frsqrt_rn(max(sum w^2, 1e-24)), sum w^2 the chunks' tile_sq
 //             added in the same order.
-// Both kernels call it beyond CMAX.  Up to WMAX deep, the backward keeps
+// The forward calls it beyond CMAX.  Up to WMAX deep, the backward keeps
 // every chunk of its tiles resident instead (stage_chunks, resident_rnorms,
 // resident_cosine) and forms the same bits from them.  Up to CMAX deep, both
 // kernels split the depth over a thread-block cluster of n_slices(D)
@@ -31,7 +31,10 @@
 // memory does not depend on the cluster's size, so the same blocks run in
 // clusters of up to CLUSTER_MAX (16): past the portable size (8, to
 // CPORT = 2048 deep) the kernel must be allowed a non-portable cluster
-// (allow_cluster).
+// (allow_cluster).  Beyond CMAX the backward's clusters walk the depth in
+// passes of one slice a block (passes_cluster, n_passes), each block's
+// share of a tile's cosines carried across them as one running sum in
+// chunk order: chunked_cosine's bits again (flash_aam_bwd.cu).
 #pragma once
 
 #include "flash_aam_common.cuh"
@@ -213,22 +216,28 @@ constexpr int CMAX = CLUSTER_MAX * SW;        // 4096: the cluster routes' deepe
 
 __host__ __device__ inline int n_slices(int D) { return (D + SW - 1) / SW; }
 
-// The launch configuration of `clusters` clusters of n_slices(D) blocks,
-// consecutive in x; attr must outlive its use.
-inline cudaLaunchConfig_t cluster_config(int D, int clusters, size_t smem, cudaStream_t st,
-                                         cudaLaunchAttribute* attr) {
+// The launch configuration of `clusters` clusters of n blocks, consecutive
+// in x; attr must outlive its use.
+inline cudaLaunchConfig_t cluster_config_of(int n, int clusters, size_t smem, cudaStream_t st,
+                                            cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = n_slices(D);
+  attr->val.clusterDim.x = n;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * n_slices(D));
+  cfg.gridDim = dim3(clusters * n);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// The same for clusters of n_slices(D) blocks (the cluster routes).
+inline cudaLaunchConfig_t cluster_config(int D, int clusters, size_t smem, cudaStream_t st,
+                                         cudaLaunchAttribute* attr) {
+  return cluster_config_of(n_slices(D), clusters, smem, st, attr);
 }
 
 // Allow `kernel` (one instantiation of a cluster route's kernel) the
@@ -438,6 +447,42 @@ __device__ __forceinline__ void cluster_rnorms_tail(const float* sq, int n_ch, f
       n_ch, [&](int k) { return cluster_ld(sq + (k & 1) * TC + c, k >> 1); },
       [&](int k, float v) { s = k ? __fadd_rn(s, v) : v; });
   rinv[c] = __frsqrt_rn(fmaxf(s, 1e-24f));
+}
+
+// ---- past CMAX: the depth in passes ----
+//
+// A cluster cannot exceed CLUSTER_MAX blocks, so past CMAX a cluster of
+// n_c = passes_cluster(D) blocks walks the depth in n_passes(D) passes of
+// n_c slices: in pass j block r holds slice j n_c + r, and the cluster the
+// chunks [2 n_c j, 2 n_c j + 2 n_c).  Each block publishes its slice's
+// partials unsummed and, past a cluster barrier, adds the partials
+// published since the last one onto the running sum of its share's slots,
+// which it carries from pass to pass: the passes go in depth order, so the
+// sum adds every chunk in chunk order, chunked_cosine's sum
+// (flash_aam_bwd.cu).  The fewest passes (CLUSTER_MAX slices each), then
+// the fewest blocks that still cover the depth in that many passes: every
+// pass but the last is full.  n_c > 8 at every D > CMAX, so these clusters
+// share out each tile as the cluster routes past CPORT do.
+__host__ __device__ inline int passes_cluster(int D) {
+  const int n_s = n_slices(D);
+  const int p = (n_s + CLUSTER_MAX - 1) / CLUSTER_MAX;
+  return (n_s + p - 1) / p;
+}
+
+__host__ __device__ inline int n_passes(int D) {
+  return (n_slices(D) + passes_cluster(D) - 1) / passes_cluster(D);
+}
+
+// The four floats at p's counterpart in the shared memory of the cluster's
+// block `rank` (16-byte aligned), as cluster_ld reads one.
+__device__ __forceinline__ float4 cluster_ld4(const float* p, int rank) {
+  uint32_t a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(tf32x3::smem_addr(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
 }
 
 }  // namespace flash_aam

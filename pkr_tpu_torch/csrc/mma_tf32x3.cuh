@@ -116,14 +116,15 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 enum Layout { MK_ROWS, K_ROWS };
 
 // acc[i][j] += A[16 i .., 0 .. 32) * B[0 .. 32, n0 + 8 j ..] for one warp,
-// MT = 2 by NT = 4 tiles in 3xTF32, where A is a 32x32 tile (row length 32)
-// held as its TF32 parts A_big and A_small, laid out as LA says, and B has
-// the depth along its rows (K_ROWS, row length ldb) and is split here.
+// MT (2, or 1 for A's first 16 rows) by NT = 4 tiles in 3xTF32, where A is
+// a 32x32 tile (row length 32) held as its TF32 parts A_big and A_small,
+// laid out as LA says, and B has the depth along its rows (K_ROWS, row
+// length ldb) and is split here.
 // Every fragment address is a per-thread offset fixed before the loop plus
 // a step that is the same for the whole warp: the swizzle of a row depends
 // on its low three bits only, which the 8-deep steps leave alone.
-template <Layout LA>
-__device__ __forceinline__ void warp_mma_k32(float (&acc)[2][4][4], const float* A_big,
+template <Layout LA, int MT = 2>
+__device__ __forceinline__ void warp_mma_k32(float (&acc)[MT][4][4], const float* A_big,
                                              const float* A_small, const float* B, int ldb,
                                              int n0) {
   const int lane = threadIdx.x & 31;
@@ -139,9 +140,9 @@ __device__ __forceinline__ void warp_mma_k32(float (&acc)[2][4][4], const float*
   const int sg = swz(g);
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
-    uint32_t ab[2][4], as[2][4], bb[4][2], bs[4][2];
+    uint32_t ab[MT][4], as[MT][4], bb[4][2], bs[4][2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {  // a_r: m = 16 i + g + 8 (r % 2), k = 8 ks + t + 4 (r / 2)
         const int m = 16 * i + g + 8 * (r & 1);
@@ -160,15 +161,15 @@ __device__ __forceinline__ void warp_mma_k32(float (&acc)[2][4][4], const float*
         bb[j][e] = sp.big, bs[j][e] = sp.small;
       }
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) mma(acc[i][j], as[i], bb[j]);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) mma(acc[i][j], ab[i], bs[j]);
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) mma(acc[i][j], ab[i], bb[j]);
   }

@@ -266,7 +266,7 @@ def _cluster_splits(n_tiles, n_btiles, clusters):
 
 # each library's routes, in the order of its <kernel>_route(D) codes
 _ROUTES = {_KERNEL: ("tiles", "cluster", "chunks"),
-           _BWD_KERNEL: ("tiles", "wide", "chunks", "cluster")}
+           _BWD_KERNEL: ("tiles", "wide", "passes", "cluster")}
 
 
 def _query(kernel: str, name: str, D: int) -> int:
@@ -281,8 +281,10 @@ def _route(kernel: str, D: int) -> str:
     """A kernel's route for depth D, as its library picks it.  The
     forward's: ``tiles`` (D ≤ 256), ``cluster`` (to 4096) or ``chunks``; the
     backward's: ``tiles`` (D ≤ 256), ``wide`` (to 512), ``cluster`` (to
-    4096) or ``chunks``.  A cluster route runs clusters of ⌈D/256⌉ blocks:
-    up to 8 (D ≤ 2048) at the portable size, 9–16 past it."""
+    4096) or ``passes``.  A cluster route runs clusters of ⌈D/256⌉ blocks:
+    up to 8 (D ≤ 2048) at the portable size, 9–16 past it; the passes
+    route clusters of 9–16 that walk the depth in passes
+    (:func:`bwd_passes_geometry`)."""
     return _ROUTES[kernel][_query(kernel, f"{kernel}_route", D)]
 
 
@@ -290,13 +292,35 @@ def _route(kernel: str, D: int) -> str:
 def _occupancy(kernel: str, index: int, D: int, query: str) -> int:
     """The library's occupancy ``query`` for depth D on card ``index``:
     blocks of the route an SM (``flash_aam_bwd_blocks_per_sm``) or clusters
-    of the cluster route on the card (``flash_aam_fwd_clusters``,
-    ``flash_aam_bwd_clusters``)."""
+    of the route on the card (``flash_aam_fwd_clusters``: the forward's
+    cluster route; ``flash_aam_bwd_clusters``: the backward's cluster and
+    passes routes)."""
     with torch.cuda.device(index):
         n = _query(kernel, query, D)
     if n < 1:
         raise RuntimeError(f"{kernel}: {query} gave {n} at D = {D}")
     return n
+
+
+def bwd_passes_geometry(D: int):
+    """(depth passes, blocks a cluster) of the backward's passes route for
+    depth D > 4096, as ``flash_aam_bwd.cu`` (``n_passes``,
+    ``passes_cluster``) lays it out: the depth's ⌈D/256⌉ slices in the
+    fewest passes of at most 16 (Hopper's largest cluster), then the fewest
+    blocks that cover them in that many passes, one slice a block a pass.
+    D = 4608: 2 passes of 9 blocks; 8192: 2 of 16; 12288: 3 of 16."""
+    if D <= 4096:
+        raise ValueError(f"the passes route takes D > 4096, not {D}")
+    n_s = -(-D // 256)
+    blocks = -(-n_s // -(-n_s // 16))
+    return -(-n_s // blocks), blocks
+
+
+def bwd_passes_de_workers(D: int) -> int:
+    """The de workers (clusters) of the passes route for each batch tile and
+    class split: one for each half of the tile's rows and each output group
+    of two depth passes."""
+    return 2 * -(-bwd_passes_geometry(D)[0] // 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -362,14 +386,17 @@ flash_aam_fwd.route_launches = dict.fromkeys(_ROUTES[_KERNEL], 0)
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    """(launch function, block rows, block classes) of the built backward
-    library."""
+    """(launch function, block rows, block classes, scratch function) of the
+    built backward library: the scratch function gives the floats of
+    scratch that a launch needs past the splits' partials, for (C, D)."""
     lib = _native.load(_BWD_KERNEL)
     fn = lib.flash_aam_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
                    + [ctypes.c_void_p] * 4)
-    return fn, lib.flash_aam_bwd_block_rows(), lib.flash_aam_bwd_block_classes()
+    scratch = lib.flash_aam_bwd_scratch
+    scratch.argtypes, scratch.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn, lib.flash_aam_bwd_block_rows(), lib.flash_aam_bwd_block_classes(), scratch
 
 
 def _bwd_blocks_per_sm(index: int, D: int) -> int:
@@ -379,7 +406,7 @@ def _bwd_blocks_per_sm(index: int, D: int) -> int:
 
 
 def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
-    fn, bm, bn = _bwd_kernel()
+    fn, bm, bn, scratch = _bwd_kernel()
     B, D = e_hat.shape
     C = weight.shape[0]
     dev = e_hat.device
@@ -387,12 +414,15 @@ def _launch_bwd(e_hat, weight, labels, lse, g, m, s):
     labels = labels.to(torch.int32).contiguous()
     index = _device_index(dev)
     route = _route(_BWD_KERNEL, D)
-    if route == "cluster":  # each de worker is a cluster: split by the resident ones
+    n_btiles = -(-B // bm)
+    if route in ("cluster", "passes"):  # each de worker is a cluster: split by the resident ones
         units, per_unit = _occupancy(_BWD_KERNEL, index, D, "flash_aam_bwd_clusters"), 1
+        if route == "passes":
+            n_btiles *= bwd_passes_de_workers(D)
     else:
         units, per_unit = _sm_count(index), _bwd_blocks_per_sm(index, D)
-    tiles_per_split, n_splits = _n_splits(-(-C // bn), -(-B // bm), units, per_unit)
-    part = torch.empty((n_splits, B, D), dtype=torch.float32, device=dev)
+    tiles_per_split, n_splits = _n_splits(-(-C // bn), n_btiles, units, per_unit)
+    part = torch.empty(n_splits * B * D + scratch(C, D), dtype=torch.float32, device=dev)
     de = torch.empty((B, D), dtype=torch.float32, device=dev)
     dw = torch.empty((C, D), dtype=torch.float32, device=dev)
     cos_m, sin_m, th, mm = _margin_consts(m)

@@ -208,8 +208,37 @@ def test_cpu_call_counts_no_route():
     lse = port_flash.flash_aam_fwd(e_hat, wt, lt, zt)[0]
     port_flash.flash_aam_bwd(e_hat, wt, lt, lse, torch.ones(16))
     assert port_flash.flash_aam_fwd.route_launches == {"tiles": 0, "cluster": 0, "chunks": 0}
-    assert port_flash.flash_aam_bwd.route_launches == {"tiles": 0, "wide": 0, "chunks": 0,
+    assert port_flash.flash_aam_bwd.route_launches == {"tiles": 0, "wide": 0, "passes": 0,
                                                        "cluster": 0}
+
+
+# D -> (depth passes, blocks a cluster, de workers a batch tile and split) of
+# the backward's passes route (D > 4096): 4097 (a last slice of one column)
+# to 8192 in two passes of 9 to 16 blocks, then three, four and five
+PASSES_GEOMETRY = {4097: (2, 9, 2), 4608: (2, 9, 2), 6001: (2, 12, 2), 8192: (2, 16, 2),
+                   8193: (3, 11, 4), 12288: (3, 16, 4), 12289: (4, 13, 4), 20000: (5, 16, 6)}
+
+
+@pytest.mark.parametrize("D", sorted(PASSES_GEOMETRY))
+def test_bwd_passes_geometry(D):
+    """bwd_passes_geometry, the library's n_passes and passes_cluster: the
+    ⌈D/256⌉ slices in the fewest passes of at most 16, each pass on a
+    cluster of 9 to 16 blocks (past the portable 8, within Hopper's 16),
+    the fewest that cover the slices in that many passes, so that only the
+    last pass has idle blocks; and the de workers, a half tile and an output
+    group of two passes each."""
+    passes, blocks, workers = PASSES_GEOMETRY[D]
+    assert port_flash.bwd_passes_geometry(D) == (passes, blocks)
+    assert port_flash.bwd_passes_de_workers(D) == workers
+    n_s = -(-D // 256)
+    assert 9 <= blocks <= 16
+    assert (passes - 1) * blocks < n_s <= passes * blocks
+    assert passes == -(-n_s // 16) and (blocks - 1) * passes < n_s
+
+
+def test_bwd_passes_geometry_is_past_the_cluster_route():
+    with pytest.raises(ValueError):
+        port_flash.bwd_passes_geometry(4096)
 
 
 # (class tiles, batch tiles, SMs, blocks an SM): the kernels' shapes on an

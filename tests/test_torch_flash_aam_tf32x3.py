@@ -27,7 +27,8 @@ dots added in chunk order.  The forward's cluster route (fwd_cluster_kernel,
 cluster's blocks publish in that same order.  mm_chunked emulates that
 order for the depth product and is held to the Pallas kernels at the same
 bars, up to D = 4096, a cluster of 16 (clusters of 9, 12 and 16 at D =
-2304, 3001 and 4096, past the portable size of 8).  Up to
+2304, 3001 and 4096, past the portable size of 8), and past it at D = 4608,
+6001 and 8192, where the forward streams the chunks itself.  Up to
 D = 512 the backward takes its wide route (flash_aam_bwd.cu:
 bwd_wide_kernel), which forms the same cosines but sums dW's projection
 dŵ·ŵ over the whole depth in one pass, in its warps' order (row_dot_wide);
@@ -36,7 +37,13 @@ From 512 to 4096 it takes its cluster route (bwd_cluster_kernel), whose
 blocks each hold a 256-wide slice of the depth: the same cosines, and dW's
 projection summed per slice in its warps' order, then over the slices in
 slice order (row_dot_sliced), held to the Pallas kernel at D = 777, 1024,
-2048, 2304, 3001 and 4096, and to the f64 dot within f32 rounding.
+2048, 2304, 3001 and 4096, and to the f64 dot within f32 rounding.  Past
+4096 it takes its passes route (bwd_passes_kernel), whose clusters walk
+the depth in passes, each block accumulating two 256-wide slices of half a
+tile: the cosines in the same chunk order, carried across the passes, and
+dW's projection in the same order per slice and over the slices
+(row_dot_sliced again), held to the Pallas kernel at D = 4608, 6001 (the
+4-byte copies and a ragged last slice) and 8192.
 """
 
 import numpy as np
@@ -109,7 +116,10 @@ DEEP_CASES = {"D300": (make(B=24, D=300, C=200, seed=12), 128),
               "D2048": (make(B=16, D=2048, C=100, seed=16), 128),
               "D2304": (make(B=16, D=2304, C=100, seed=17), 128),
               "D3001": (make(B=16, D=3001, C=100, seed=18), 128),
-              "D4096": (make(B=16, D=4096, C=100, seed=19), 128)}
+              "D4096": (make(B=16, D=4096, C=100, seed=19), 128),
+              "D4608": (make(B=16, D=4608, C=100, seed=20), 128),
+              "D6001": (make(B=16, D=6001, C=100, seed=21), 128),
+              "D8192": (make(B=16, D=8192, C=100, seed=22), 128)}
 
 
 def row_dot_wide(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -141,15 +151,16 @@ SW = 256  # the depth of a block's slice on the cluster route (flash_aam_cosine.
 
 def row_dot_sliced(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Σ_d x·y of each row, kept as a column, in the order in which
-    bwd_cluster_kernel sums dW's projection (512 < D ≤ 4096, zeros to a
-    multiple of 256, one slice per block of a cluster of up to 16): depth d = 256·s + 32·w + 8·j + 2·t + q lies with lane t
-    of a class's four in warp w of the cluster's block s; each lane adds its
-    products in the order j, q, one rounding each (fmaf; modelled in f64,
-    then rounded to f32), the four lanes add as (t0 + t1) + (t2 + t3), the
-    warps' sums add from 0 in warp order, and the slices' sums add in slice
-    order."""
+    bwd_cluster_kernel (512 < D ≤ 4096, one slice per block of a cluster of
+    up to 16) and bwd_passes_kernel (D > 4096, slices walked in depth
+    passes) sum dW's projection, zeros to a multiple of 256: depth
+    d = 256·s + 32·w + 8·j + 2·t + q of slice s lies with lane t of a
+    class's four in warp w; each lane adds its products in the order j, q,
+    one rounding each (fmaf; modelled in f64, then rounded to f32), the four
+    lanes add as (t0 + t1) + (t2 + t3), the warps' sums add from 0 in warp
+    order, and the slices' sums add in slice order."""
     C, D = x.shape
-    assert 512 < D <= 4096
+    assert 512 < D
     n_s = -(-D // SW)
     prod = torch.nn.functional.pad(x.double() * y.double(), (0, n_s * SW - D))
     prod = prod.reshape(C, n_s, 8, 4, 4, 2)  # (class, slice, w, j, t, q)
@@ -167,12 +178,13 @@ def row_dot_sliced(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return total[:, None]
 
 
-@pytest.mark.parametrize("D", [777, 2048, 2304, 3001, 4096])
+@pytest.mark.parametrize("D", [777, 2048, 2304, 3001, 4096, 4608, 6001, 8192])
 def test_row_dot_sliced_is_f32_accurate(D):
     """row_dot_sliced (the order of dW's projection on the cluster route, up
-    to 16 slices) against the f64 dot of each row: within the error bound
-    of a recursive f32 sum of its terms, n·u·Σ|x·y| (u = 2⁻²⁴, n = D), and
-    no further from it than the plain f32 row sum is, times 4."""
+    to 16 slices, and on the passes route past them) against the f64 dot of
+    each row: within the error bound of a recursive f32 sum of its terms,
+    n·u·Σ|x·y| (u = 2⁻²⁴, n = D), and no further from it than the plain f32
+    row sum is, times 4."""
     rng = np.random.default_rng(D)
     x = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32))
     y = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32))
@@ -318,7 +330,8 @@ def test_tf32x3_bwd_matches_pallas_bwd(name, monkeypatch):
     deep cases model the backward's route for their depth: the chunked
     cosine (mm_chunked) and dW's projection in the route's order, the wide
     route's (row_dot_wide) at D = 300 and 512, the cluster route's
-    (row_dot_sliced) at D = 777, 1024, 2048, 2304, 3001 and 4096."""
+    (row_dot_sliced) at D = 777, 1024, 2048, 2304, 3001 and 4096, and the
+    passes route's (row_dot_sliced too) at D = 4608, 6001 and 8192."""
     (emb, w, labels), tile = {**CASES, **DEEP_CASES}[name]
     mm = mm_tf32x3
     if name in DEEP_CASES:

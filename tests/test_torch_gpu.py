@@ -24,9 +24,10 @@ to D = 4096 (its cluster route; clusters of up to 8 blocks to D = 2048, the
 portable size, and of 9 to 16 past it) and streams it in 128-deep chunks
 beyond, and the backward keeps the chunks resident up to D = 512 (its wide
 route), splits them over a cluster up to 4096 (its cluster route) and
-streams them beyond (D = 300, 301, 512, 777, 1024, 2048, 2304, 3001, 4096
-and 4608 are held to the plain version in both directions, each on its
-routes; D = 301, 777 and 3001 take the 4-byte copies).  Each backward route
+beyond walks them in depth passes over a cluster (its passes route; D =
+300, 301, 512, 777, 1024, 2048, 2304, 3001, 4096, 4097, 4608, 6001 and
+8192 are held to the plain version in both directions, each on its
+routes; D = 301, 777, 3001 and 6001 take the 4-byte copies).  Each backward route
 holds as many blocks on an SM as its shared memory allows, and each
 cluster route as many clusters as the card holds at once, at least one of
 16.  The flash gradients
@@ -101,15 +102,18 @@ def test_flash_aam_fwd_is_deterministic(D):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("B,D", [(256, 256), (100, 37), (256, 512), (100, 300), (100, 301),
-                                 (100, 1024), (100, 777), (64, 2048), (100, 2304),
-                                 (64, 3001), (64, 4096)])
+@pytest.mark.parametrize("B,D,exact", [
+    (B, D, exact) for B, D in ((256, 256), (100, 37), (256, 512), (100, 300), (100, 301),
+                               (100, 1024), (100, 777), (64, 2048), (100, 2304), (64, 3001),
+                               (64, 4096), (64, 4608), (64, 6001), (64, 8192), (64, 8193))
+    for exact in (True, False)] + [(64, 4097, False)])
 def test_fwd_and_bwd_cosines_agree_bit_for_bit(B, D, exact):
     """With one class and every label 0, the forward's lse is its zy, so the
     backward's p = exp(z − lse) is exactly 1 and its gradients exactly 0
     where both kernels computed the same cosine bits (the f32-FMA forward of
-    earlier versions fails this)."""
+    earlier versions fails this).  D = 4097 has no exact construction (its
+    Σw² cannot be a power of 4 with entries ±1, ±2 and one zero), so it
+    takes the Gaussian case alone."""
     dev = _card()
     from chip_smoke import consistency_inputs
 
@@ -231,19 +235,23 @@ def _fwd_route(D):
 
 
 def _bwd_route(D):
-    return "tiles" if D <= 256 else "wide" if D <= 512 else "cluster" if D <= 4096 else "chunks"
+    return "tiles" if D <= 256 else "wide" if D <= 512 else "cluster" if D <= 4096 else "passes"
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [300, 301, 512, 777, 1024, 2048, 2304, 3001, 4096, 4608])
+@pytest.mark.parametrize("D", [300, 301, 512, 777, 1024, 2048, 2304, 3001, 4096, 4097, 4608,
+                               6001, 8192, 8193])
 def test_flash_aam_deep_rows_match_plain(D):
     """D > 256 (the forward's cluster route up to 4096 and its chunked route
     beyond; the backward's wide route up to 512, its cluster route to 4096
-    and its chunked route beyond; D = 777 takes the 4-byte copies and a
+    and its passes route beyond; D = 777 takes the 4-byte copies and a
     ragged last slice, 2048 a cluster of 8, 2304 one of 9, 3001 one of 12
-    with 4-byte copies and a ragged last slice, 4096 one of 16) against the
-    plain versions at the bars above, forward and backward, each launch on
-    its route."""
+    with 4-byte copies and a ragged last slice, 4096 one of 16; past it
+    4097 two passes of 9 blocks with a last slice of one column, 4608 two
+    of 9, 6001 two of 12 with 4-byte copies and a ragged last slice, 8192
+    two of 16, 8193 three of 11, two output groups) against the plain
+    versions at the bars above, forward and backward, each launch on its
+    route."""
     fwd, bwd = _fwd_route(D), _bwd_route(D)
     before = (flash_aam.flash_aam_fwd.route_launches[fwd],
               flash_aam.flash_aam_bwd.route_launches[bwd])
@@ -285,30 +293,35 @@ def test_flash_aam_fwd_route_by_depth(D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("D,blocks", [(37, 2), (256, 2), (257, 1), (301, 1), (512, 1),
                                       (513, 2), (1024, 2), (2048, 2), (2049, 2), (3001, 2),
-                                      (4096, 2), (4097, 2)])
+                                      (4096, 2), (4097, 2), (4608, 2), (6001, 2), (8192, 2),
+                                      (12288, 2)])
 def test_flash_aam_bwd_blocks_per_sm_by_route(D, blocks):
     """The occupancy the split rule reads: two blocks an SM for the tiles,
-    cluster (512 < D <= 4096) and chunked routes, one for the wide route
+    cluster (512 < D <= 4096) and passes routes, one for the wide route
     (256 < D <= 512).  The cluster route also reports its cluster size,
-    ceil(D / 256), and how many clusters the card holds at once: at least
-    one, and no more blocks than its SMs hold."""
+    ceil(D / 256), the passes route its cluster size and depth passes
+    (bwd_passes_geometry), and both how many clusters the card holds at
+    once: at least one, and no more blocks than its SMs hold."""
     dev = _card()
     index = dev.index or 0
     kernel = flash_aam._BWD_KERNEL
     assert flash_aam._bwd_blocks_per_sm(index, D) == blocks
     size = flash_aam._query(kernel, "flash_aam_bwd_cluster_size", D)
-    if 512 < D <= 4096:
-        assert size == -(-D // 256)
+    passes = flash_aam._query(kernel, "flash_aam_bwd_passes", D)
+    if D > 512:
+        want = (1, -(-D // 256)) if D <= 4096 else flash_aam.bwd_passes_geometry(D)
+        assert (passes, size) == want
         clusters = flash_aam._occupancy(kernel, index, D, "flash_aam_bwd_clusters")
         sms = torch.cuda.get_device_properties(index).multi_processor_count
         assert 1 <= clusters and clusters * size <= blocks * sms
     else:
-        assert size == 1
+        assert size == 1 and passes == 1
         assert flash_aam._query(kernel, "flash_aam_bwd_clusters", D) == -1
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [256, 300, 301, 512, 777, 1024, 2048, 4096])
+@pytest.mark.parametrize("D", [256, 300, 301, 512, 777, 1024, 2048, 4096, 4097, 4608, 6001,
+                               8192, 8193])
 def test_flash_aam_bwd_is_deterministic(D):
     dev = _card()
     args = _bwd_case(dev, 256, 7325, D)
