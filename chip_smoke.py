@@ -7,8 +7,10 @@ Run from the root of a checkout, with no arguments:
 
 (`python3 chip_smoke.py --deep-times ROOT` instead times both kernels at
 their deep shapes, D = 300, 512, 1024 (twice), 2304, 4096 and 4608 (twice),
-from the pkr_tpu_torch of the checkout at ROOT: run in turns on two
-checkouts in one call, it compares them on one card.)
+from the pkr_tpu_torch of the checkout at ROOT, and prints a digest of each
+kernel's SASS in the libraries it built: run in turns on two checkouts in
+one call, it compares them on one card, and the digests show which kernels
+the two builds compile alike.)
 
 Phases, one JSON line each:
   env     the card's name, count and power limit (nvidia-smi);
@@ -17,23 +19,22 @@ Phases, one JSON line each:
           spills, and the tensor-core HMMA instructions cuobjdump finds in
           each: both kernels run on the tensor cores, so neither may have
           none; the backward's wide, cluster and passes routes and the
-          forward's cluster route may not spill);
+          forward's cluster and passes routes may not spill);
   kernel  the clusters of each cluster route that the card holds at once
           and its blocks an SM, at D = 1024, 2048, 2304, 3001 and 4096
           (clusters of 4, 8, 9, 12 and 16 blocks; at least one each), and of
-          the backward's passes route at D = 4608, 6001 and 8192 (two depth
-          passes of 9, 12 and 16 blocks); each kernel against its plain
+          both passes routes at D = 4608, 6001 and 8192 (two depth passes of
+          9, 12 and 16 blocks); each kernel against its plain
           PyTorch version on the card, at the
           shapes of the paths and beyond: D = 256; the deep D = 512, 300 and
           301 (4-byte copies), which the forward takes through its cluster
           route and the backward through its wide route; D = 1024, 777
           (4-byte copies, a ragged last slice), 2048 (a cluster of 8), 2304
           (9, every slice full), 3001 (12, 4-byte copies, a last slice of
-          185 columns) and 4096 (16), the cluster route of both; D = 4608,
-          the forward's chunked route and the backward's passes route,
-          which the backward also takes at D = 4097 (a last slice of one
-          column), 6001 (4-byte copies), 8192 and 8193 (three depth
-          passes; the forward twice for the
+          185 columns) and 4096 (16), the cluster route of both; D = 4608
+          (also at 256 x 7325), 4097 (a last slice of one column), 6001
+          (4-byte copies), 8192 and 8193 (three depth passes), the passes
+          route of both; the forward twice for the
           same bits at every deep D; a gradient row by row, each row within
           1e-3 of its own norm, with planted faults the check must reject;
           the backward also with every target p ≈ 0.993 against the plain
@@ -48,7 +49,7 @@ Phases, one JSON line each:
           2304, 3001, 4096, 4097, 4608, 6001, 8192 and 8193); and one flash and one
           dense ResNet-34 train step of a 512-, a 1024-, a 4096- and a
           4608-wide embedding agree, every forward launch of each path on
-          the forward's cluster route (its chunked route at 4608) and every
+          the forward's cluster route (its passes route at 4608) and every
           backward launch on its route (wide, cluster, cluster in clusters
           of 16, passes), with both steps' ms and the flash step's device
           ms and kernel share; the phase within 150 s;
@@ -164,9 +165,9 @@ Phases, one JSON line each:
           512), then one entry for each deeper route: the backward's wide
           route (timed at 256 × 7325 × 512), each cluster route (timed at
           100 × 7001 × 1024, with a `deep` record at 256 × 7325 × 1024 and
-          `shapes` at 100 × 7001 × 2304 and 256 × 7325 × 4096), the
-          forward's chunked route and the backward's passes route (timed at
-          100 × 7001 × 4608, launched on the 4608-wide train path).
+          `shapes` at 100 × 7001 × 2304 and 256 × 7325 × 4096), each passes
+          route (timed at 100 × 7001 × 4608, launched on the 4608-wide train
+          path; the forward's with a `deep` record at 256 × 7325 × 4608).
 Then the card's nvidia-smi line and, last, {"ok": true, "device": {...}}.
 Any failed check exits non-zero before the last line.  Without a CUDA card,
 or outside a checkout, it fails at once and prints no result.
@@ -367,14 +368,16 @@ def phase_build():
     # the backward's route for 256 < D <= 512 holds a 32 x 512 accumulator a
     # block in registers, its cluster route (512 < D <= 4096) and its passes
     # route beyond a 32 x 256 slice in the 128 registers of two blocks an
-    # SM, and the forward's cluster route (256 < D <= 4096) runs two blocks
+    # SM, and the forward's cluster route (256 < D <= 4096) and its passes
+    # route beyond (a pair's reads of a whole pass in flight) run two blocks
     # an SM too: none may spill (each cluster kernel has a 16- and a
-    # 4-byte-copy instantiation, the backward's cluster kernel each in two
-    # exchanges: up to the portable cluster size and past it)
+    # 4-byte-copy instantiation, the cluster kernels each in two exchanges:
+    # up to the portable cluster size and past it)
     for lib, kernel, n in (("flash_aam_bwd", "bwd_wide_kernel", 2),
                            ("flash_aam_bwd", "bwd_cluster_kernel", 4),
                            ("flash_aam_bwd", "bwd_passes_kernel", 2),
-                           ("flash_aam_fwd", "fwd_cluster_kernel", 4)):
+                           ("flash_aam_fwd", "fwd_cluster_kernel", 4),
+                           ("flash_aam_fwd", "fwd_passes_kernel", 2)):
         ptxas = _native.BUILD_INFO[lib]["ptxas"]
         found = {k: v for k, v in ptxas.items() if kernel in k}
         check(len(found) == n, f"ptxas reported {len(found)} {kernel} instantiations, not {n}")
@@ -433,7 +436,11 @@ def _rank_gaps(torch, emb, w, labels, rows, k):
     return (tgt - kth).abs()
 
 
-FWD_KERNELS = ("fwd_tiles_kernel", "fwd_cluster_kernel", "fwd_chunks_kernel", "merge_kernel")
+# every kernel of the forward's library (the passes route's norms kernel
+# included), and the chunked route of an older checkout's, which
+# --deep-times times
+FWD_KERNELS = ("fwd_tiles_kernel", "fwd_cluster_kernel", "fwd_passes_kernel", "fwd_norms_kernel",
+               "fwd_chunks_kernel", "merge_kernel")
 
 
 def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True, repeat=False,
@@ -621,9 +628,11 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
                 ("kernel", lambda: fa.flash_aam_bwd(e_hat, w, labels, lse, g), BWD_KERNELS),
                 ("plain", lambda: fa.flash_aam_bwd_plain(e_hat, w, labels, lse, g), None),
                 ("library", dense_bwd, None)):
-            row[f"{tag}_ms"], row[f"{tag}_device_kernels_per_call"], _ = device_ms(
+            row[f"{tag}_ms"], row[f"{tag}_device_kernels_per_call"], top = device_ms(
                 torch, fn, profiled_calls(tag, iters), only)
             row[f"{tag}_call_ms"] = call_ms(torch, fn, iters)
+            if tag == "kernel":  # each of the route's kernels, ms per call
+                row["kernel_ms_by_launch"] = top
         check(row["kernel_ms"] is not None, f"{name}: the trace shows no kernel time")
         row["bound_ms"], row["bound_by"], row["bound_tc_ms"] = flash_bwd_bound(B, C, D)
     emit(row)
@@ -777,60 +786,54 @@ KERNEL_BUDGET_S = 150.0
 # the cluster routes' depths past the portable cluster size (8): clusters
 # of 9, 12 and 16 blocks
 NONPORTABLE_D = (2304, 3001, 4096)
-# the backward's passes route (D > 4096): two depth passes of clusters of
+# both kernels' passes routes (D > 4096): two depth passes of clusters of
 # 9, 12 and 16 blocks
 PASSES_D = (4608, 6001, 8192)
 
 
 def resident_clusters(torch, smi_line):
-    """The clusters of each cluster route that the card holds at once, and
-    its blocks an SM, at D = 1024 and 2048 (clusters of 4 and 8) and at
-    NONPORTABLE_D (9, 12 and 16), and those of the backward's passes route
-    at PASSES_D, with its depth passes: the launch refuses a cluster that
-    the card cannot hold, so each must be at least 1."""
+    """The clusters of each cluster and passes route that the card holds at
+    once, and its blocks an SM, at D = 1024 and 2048 (clusters of 4 and 8),
+    at NONPORTABLE_D (9, 12 and 16) and at PASSES_D (passes of 9, 12 and 16
+    blocks), with the depth passes: the launch refuses a cluster that the
+    card cannot hold, so each must be at least 1."""
     from pkr_tpu_torch.ops import flash_aam as fa
 
     by_d = {}
     with torch.cuda.device(0):
         for D in (1024, 2048) + NONPORTABLE_D + PASSES_D:
-            kernels = ((fa._KERNEL, "fwd"),) if D <= 4096 else ()
-            rec = {"bwd_n_s": fa._query(fa._BWD_KERNEL, "flash_aam_bwd_cluster_size", D),
-                   "bwd_passes": fa._query(fa._BWD_KERNEL, "flash_aam_bwd_passes", D)}
-            if D <= 4096:
-                rec["n_s"] = fa._query(fa._KERNEL, "flash_aam_fwd_cluster_size", D)
-            for kernel, short in kernels + ((fa._BWD_KERNEL, "bwd"),):
-                rec[f"{short}_clusters"] = fa._query(kernel, f"{kernel}_clusters", D)
-                rec[f"{short}_blocks_per_sm"] = fa._query(kernel, f"{kernel}_blocks_per_sm", D)
+            rec = {}
+            for kernel, short in ((fa._KERNEL, "fwd"), (fa._BWD_KERNEL, "bwd")):
+                for query in ("cluster_size", "passes", "clusters", "blocks_per_sm"):
+                    rec[f"{short}_{query}"] = fa._query(kernel, f"{kernel}_{query}", D)
             by_d[D] = rec
     emit({"phase": "kernel", "kernel": "resident_clusters", "by_D": by_d,
           "sms": torch.cuda.get_device_properties(0).multi_processor_count, "card": smi_line})
     for D, rec in by_d.items():
-        if D <= 4096:
-            check(rec["n_s"] == rec["bwd_n_s"] == -(-D // 256) and rec["bwd_passes"] == 1,
-                  f"D = {D}: cluster sizes {rec}")
-            check(rec["fwd_clusters"] >= 1, f"D = {D}: the card holds no cluster of "
-                                            f"{rec['n_s']}: {rec}")
-        else:
-            check((rec["bwd_passes"], rec["bwd_n_s"]) == fa.bwd_passes_geometry(D),
-                  f"D = {D}: passes and cluster size {rec}")
-        check(rec["bwd_clusters"] >= 1 and rec["bwd_blocks_per_sm"] == 2,
-              f"D = {D}: the card holds no cluster of {rec['bwd_n_s']} at two blocks an SM: "
-              f"{rec}")
+        want = (1, -(-D // 256)) if D <= 4096 else fa.passes_geometry(D)
+        for short in ("fwd", "bwd"):
+            check((rec[f"{short}_passes"], rec[f"{short}_cluster_size"]) == want,
+                  f"D = {D}: passes and cluster sizes {rec}")
+            check(rec[f"{short}_clusters"] >= 1 and rec[f"{short}_blocks_per_sm"] == 2,
+                  f"D = {D}: the card holds no cluster of {want[1]} at two blocks an SM: {rec}")
+        check(fa.fwd_geometry(D)[1:] == want, f"D = {D}: fwd_geometry {fa.fwd_geometry(D)}")
     return by_d
 
 
 def phase_kernel(torch, smi_line):
     t0 = time.perf_counter()
-    # D > 256 (the forward's cluster route to 4096 and its chunked route
+    # D > 256 (the forward's cluster route to 4096 and its passes route
     # beyond; the backward's wide route up to 512, its cluster route to 4096
-    # and its chunked route beyond): the 512-wide embedding at the train
+    # and its passes route beyond): the 512-wide embedding at the train
     # batch, a ragged 100 x 7001 x 300, and D = 301, whose rows take 4-byte
     # copies; 4-byte copies and a ragged last slice at 777, the 1024-wide
     # embedding, a cluster of 8 at 2048; past the portable size clusters of
     # 9 at 2304 (every slice full), of 12 at 3001 (4-byte copies, a last
-    # slice of 185 columns) and of 16 at 4096; beyond it the forward's
-    # chunked route and the backward's passes route at 4608, timed against
-    # the library; every deep case twice for the same bits
+    # slice of 185 columns) and of 16 at 4096; beyond it both passes routes
+    # at 4608 (two passes of 9 blocks), timed against the library at 100 x
+    # 7001 and 256 x 7325, at 4097 (a last slice of one column), 6001 (12
+    # blocks, 4-byte copies, a ragged last slice), 8192 (16) and 8193
+    # (three passes of 11); every deep case twice for the same bits
     clusters = resident_clusters(torch, smi_line)
     cases = [("slice_eval", BATCH, SPK, 256, True), ("path_b256", 256, SPK, 256, True),
              ("path_b1024", 1024, SPK, 256, True), ("scale_c131072", 256, 131072, 256, True),
@@ -839,7 +842,10 @@ def phase_kernel(torch, smi_line):
              ("ragged_d777", 100, 7001, 777, False), ("ragged_d1024", 100, 7001, 1024, True),
              ("train_b256_d1024", TRAIN_B, SPK, 1024, True), ("b64_d2048", 64, 7001, 2048, False),
              ("ragged_d2304", 100, 7001, 2304, True), ("ragged_d3001", 100, 7001, 3001, False),
-             ("b256_d4096", TRAIN_B, SPK, 4096, True), ("ragged_d4608", 100, 7001, 4608, True)]
+             ("b256_d4096", TRAIN_B, SPK, 4096, True), ("ragged_d4608", 100, 7001, 4608, True),
+             ("b256_d4608", TRAIN_B, SPK, 4608, True), ("ragged_d4097", 100, 7001, 4097, False),
+             ("ragged_d6001", 100, 7001, 6001, False), ("b64_d8192", 64, 7001, 8192, False),
+             ("b64_d8193", 64, 7001, 8193, False)]
     rows = [check_flash_case(torch, name, B, C, D, seed=i, timed=timed, repeat=D > 256)
             for i, (name, B, C, D, timed) in enumerate(cases)]
     rows.append(check_flash_case(torch, "saturated", 4, 300, 256, seed=9, saturated=True,
@@ -903,7 +909,7 @@ WIDE_D = (512, 1024, 4096, 4608)
 
 def check_wide_train(torch, smi_line, D):
     """A D-wide embedding (SpeakerModel(emb_dim=D); the forward's cluster
-    route up to D = 4096 and its chunked route at 4608, the backward's wide
+    route up to D = 4096 and its passes route at 4608, the backward's wide
     route at D = 512, its cluster route at 1024 and 4096, in clusters of 4
     and of 16, and its passes route at 4608, two passes of 9 blocks): one
     flash step and one dense step from the same weights agree
@@ -925,7 +931,7 @@ def check_wide_train(torch, smi_line, D):
     lr = cosine_epoch_lr(0.1, 10)(0)
     steps = {"flash": make_train_step(model, flash_aam=True), "dense": make_train_step(model)}
 
-    fwd_route = "cluster" if D <= 4096 else "chunks"
+    fwd_route = "cluster" if D <= 4096 else "passes"
     route = "wide" if D <= 512 else "cluster" if D <= 4096 else "passes"
     # --- the D-wide path, with the kernel counts at 0 just before it ---
     fa.flash_aam_fwd.launches = 0
@@ -2901,19 +2907,53 @@ DEEP_TIMED = (("b256_d512", TRAIN_B, SPK, 512), ("ragged_d300", 100, 7001, 300),
 
 
 def _timing(row):
-    return {"kernel_ms": row["kernel_ms"], "kernel_call_ms": row["kernel_call_ms"],
-            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
-            "bound_ms": row["bound_ms"], "bound_tc_ms": row["bound_tc_ms"]}
+    return {k: row[k] for k in ("kernel_ms", "kernel_call_ms", "kernel_ms_by_launch",
+                                "plain_ms", "plain_call_ms", "library_ms", "library_call_ms",
+                                "bound_ms", "bound_tc_ms")}
+
+
+def sass_digests(lib):
+    """{kernel: the first 16 hex digits of the SHA-256 of its SASS} of a
+    built library (cuobjdump -sass, each function's text from its
+    `Function :` line to the next, every run of blanks made one: cuobjdump
+    pads its columns to the widest line of the whole library): two builds
+    of one kernel compile alike where the digests are equal."""
+    import hashlib
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed on {lib}: {out.stderr[-2000:]}")
+    by_name, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            # the anonymous namespace's id hashes the source file: dropped,
+            # so that two builds name a kernel alike
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]+", "_GLOBAL__N__",
+                          line.split("Function :", 1)[1].strip())
+            by_name[name] = []
+        elif name is not None:
+            by_name[name].append(" ".join(line.split()))
+    return {k: hashlib.sha256("\n".join(v).encode()).hexdigest()[:16]
+            for k, v in sorted(by_name.items())}
 
 
 def deep_times(torch, smi_line, root):
     """Both kernels at DEEP_TIMED, each held against its plain version and
     timed (check_flash_case, check_flash_bwd_case), from the pkr_tpu_torch
-    of the checkout at `root`, with the route each launch took:
-    `python3 chip_smoke.py --deep-times ROOT`, run in turns on two checkouts
-    in one call, compares them on one card."""
+    of the checkout at `root`, with the route each launch took, after the
+    SASS digests of both libraries (sass_digests): `python3 chip_smoke.py
+    --deep-times ROOT`, run in turns on two checkouts in one call, compares
+    them on one card."""
+    from pkr_tpu_torch.ops import _native
     from pkr_tpu_torch.ops import flash_aam as fa
 
+    _native.build_all(KERNELS)
+    emit({"deep_times": "sass", "root": root,
+          "digests": {name: sass_digests(_native.build(name)) for name in KERNELS}})
     for i, (name, B, C, D) in enumerate(DEEP_TIMED):
         fwd = check_flash_case(torch, f"deep_times_{name}", B, C, D, seed=70 + i)
         bwd = check_flash_bwd_case(torch, f"deep_times_{name}", B, C, D, seed=80 + i)
@@ -3036,11 +3076,13 @@ def main():
                       [r for r in rows if 256 < r["D"] <= 4096], timed(rows, "ragged_d1024"),
                       fwd_errs, deep_row=timed(rows, "train_b256_d1024"),
                       more_rows=[timed(rows, "ragged_d2304"), timed(rows, "b256_d4096")]),
-        # the forward's chunked route (D > 4096), timed at 100 x 7001 x 4608
-        # and launched on the 4608-wide train path
-        _kernel_entry("fwd_chunks_kernel", fwd_src, fwd_tpu,
-                      by_route("flash_aam_fwd", "chunks", (4608,)),
-                      [r for r in rows if r["D"] > 4096], timed(rows, "ragged_d4608"), fwd_errs),
+        # the forward's passes route (D > 4096) with its norms kernel, timed
+        # at 100 x 7001 x 4608 and 256 x 7325 x 4608 and launched on the
+        # 4608-wide train path
+        _kernel_entry("fwd_passes_kernel", fwd_src, fwd_tpu,
+                      by_route("flash_aam_fwd", "passes", (4608,)),
+                      [r for r in rows if r["D"] > 4096], timed(rows, "ragged_d4608"), fwd_errs,
+                      deep_row=timed(rows, "b256_d4608")),
         # the backward's wide route (256 < D <= 512), timed at 256 x 7325 x
         # 512 and launched on the 512-wide train path
         _kernel_entry("bwd_wide_kernel", bwd_src, bwd_tpu,

@@ -72,7 +72,7 @@
 //     block stages its W tile and takes its norms once, then double-buffers
 //     e's batch tiles at full depth; the de block stages its e tile once and
 //     double-buffers its split's W tiles).  The cosine reads the resident
-//     chunks (resident_cosine, chunked_cosine's bits), the second product
+//     chunks (resident_cosine, the chunk order's bits), the second product
 //     reads the tile that the cosine just read, so no copy waits behind the
 //     MMAs, and the output depth is padded to 32 columns: warp w owns the
 //     slabs [32 w, 32 w + 32) and [256 + 32 w, 256 + 32 w + 32), as far as
@@ -93,8 +93,9 @@
 //     block forms its two chunks' cosine_dots (and tile_sq for the norms)
 //     and publishes them unsummed in its shared memory; after a cluster
 //     barrier every block adds all n_chunks(D) partials, read through
-//     distributed shared memory, in chunk order, which is chunked_cosine's
-//     sum, so every block forms the same a tile with the forward's bits.
+//     distributed shared memory, in chunk order (flash_aam_cosine.cuh: the
+//     chunk order), so every block forms the same a tile with the forward's
+//     bits.
 //     That exchange reads 2 n_s float4 a thread a tile: past the portable
 //     size it sets the pace (a layout that kept it lost to the library at
 //     D = 2304 on an H100; see PERF.md), so there (SHARE) each block forms
@@ -135,10 +136,9 @@
 // That matters at the sin clip (cos -> 1), where phi' grows as
 // sin_m * cos / sin and one ulp of cosine would move p by up to ~1e-3.  A
 // saturated cosine is exact: 1.0 and 2.0 split into TF32 with no
-// remainder, and 1/||w|| = 0.5.  Above DMAX the forward streams 128-deep
-// chunks (chunked_cosine); the wide, cluster and passes routes all form
-// its bits (the passes route through half_dots, cosine_dots' instructions
-// for each cosine).
+// remainder, and 1/||w|| = 0.5.  Above DMAX both kernels form the chunk
+// order's bits (flash_aam_cosine.cuh; the passes route through half_dots,
+// cosine_dots' instructions for each cosine).
 // Rows of e and W whose length is a multiple of 4 are staged with 16-byte
 // cp.async copies; other D take 4-byte copies (VEC = 1).
 
@@ -994,7 +994,7 @@ __device__ __forceinline__ void de_cluster_block(float* smem, int row_tile, int 
 // batch rows (dê) or classes (dW), and accumulates a 16 x 256 slice for
 // two passes at once: the same 32 floats a thread.  Each tile step forms
 // that half tile's cosines over every depth pass (half_dots: cosine_dots'
-// instructions and order, so chunked_cosine's bits), so a pass forms each
+// instructions and order, so the chunk order's bits), so a pass forms each
 // cosine tile once (twice past two passes: output groups of two, each
 // forming it again).  The two halves of a tile are two clusters.  The
 // cosine (four 128-deep chunks a block a tile step) and the exchange set
@@ -1118,26 +1118,13 @@ __host__ __device__ inline int passes_smem_floats() {
          2 * WARPS * TH + 2 * TH + TH + THREADS;
 }
 
-// rinv[c] = chunked_cosine's 1/||W row c|| for every class, one block per
+// rinv[c] = the chunk order's 1/||W row c|| for every class, one block per
 // TC-class tile streaming its chunks (the passes route's norms).
 template <int VEC>
 __global__ void __launch_bounds__(THREADS)
 bwd_norms_kernel(const float* __restrict__ w, int C, int D, float* __restrict__ rinv) {
-  __shared__ __align__(16) float ws[TC * KC];
-  const int col0 = blockIdx.x * TC;
-  float sq = 0.0f;
-  for (int k = 0; k < n_chunks(D); ++k) {
-    const int d0 = k * KC;
-    if (k) __syncthreads();  // every warp is done with chunk k - 1
-    tf32x3::stage_rows<VEC>(ws, KC, w + d0, D, col0, TC, C, D - d0);
-    tf32x3::commit();
-    tf32x3::wait_pending<0>();
-    __syncthreads();
-    const float t = tile_sq(ws, KC);
-    sq = k ? __fadd_rn(sq, t) : t;
-  }
-  const int c = col0 + (threadIdx.x >> 3);
-  if ((threadIdx.x & 7) == 0 && c < C) rinv[c] = __frsqrt_rn(fmaxf(sq, 1e-24f));
+  __shared__ __align__(16) float ws[2 * TC * KC];
+  stream_rnorms<VEC>(ws, w, C, D, rinv);
 }
 
 // The norms of the TC classes from col0 (bwd_norms_kernel's; those past C
@@ -1220,15 +1207,15 @@ __device__ __forceinline__ void add_partials(const float* pub, const Share& sh, 
 // One tile step's cosines: in depth pass j the block stages and dots its
 // slice j n_c + rank of the stationary and streamed rows, chunk by chunk
 // through the two slots (the next chunk's copy in flight while the current
-// one's MMAs run, as chunked_cosine streams them), each chunk's partials
-// published in buffer j % 2.  Up to two passes each has a buffer of its
-// own, so the passes publish first and meet at one cluster barrier; with
-// more, each pass meets at its own, and a buffer is rewritten only past the
-// next pass's, which the peers reach after reading it.  Past each barrier
-// the block adds the partials published since the last (add_partials).
-// Past the last it stages the streamed rows' slices of passes re_a into tb2
-// and re_b into tb (-1: none), which the caller waits for before its second
-// product.  The dots are seen by the block after the next __syncthreads.
+// one's MMAs run), each chunk's partials published in buffer j % 2.  Up to
+// two passes each has a buffer of its own, so the passes publish first and
+// meet at one cluster barrier; with more, each pass meets at its own, and a
+// buffer is rewritten only past the next pass's, which the peers reach
+// after reading it.  Past each barrier the block adds the partials
+// published since the last (add_partials).  Past the last it stages the
+// streamed rows' slices of passes re_a into tb2 and re_b into tb (-1:
+// none), which the caller waits for before its second product.  The dots
+// are seen by the block after the next __syncthreads.
 template <int VEC, bool DW>
 __device__ __forceinline__ void passes_cosine(const PassesSmem& m, const Share& sh,
                                               const float* __restrict__ s_x, int s_row0,

@@ -11,30 +11,32 @@
 // batch and the classes by TB and TC from offsets that are multiples of
 // them, so (b, c) always lands on the same warp, lane and register.
 //
-// Deeper rows (D > DMAX) do not fit the resident tiles.  Their cosines are
-// chunked_cosine's, which streams the depth in n_chunks(D) chunks of KC, the
-// last one padded with zeros:
-//   e . w   = the chunks' cosine_dots, added with __fadd_rn in chunk order,
+// Deeper rows (D > DMAX) do not fit the resident tiles.  Their cosines
+// follow the chunk order, which defines their bits on every deep route of
+// both kernels: the depth is cut into n_chunks(D) chunks of KC, the last one
+// padded with zeros; chunk k's dot is cosine_dots over that chunk alone, and
+//   e . w   = the chunks' dots, added with __fadd_rn in chunk order (the
+//             first chunk's dot is the start, not 0 + it),
 //   1/||w|| = __frsqrt_rn(max(sum w^2, 1e-24)), sum w^2 the chunks' tile_sq
-//             added in the same order.
-// The forward calls it beyond CMAX.  Up to WMAX deep, the backward keeps
-// every chunk of its tiles resident instead (stage_chunks, resident_rnorms,
-// resident_cosine) and forms the same bits from them.  Up to CMAX deep, both
-// kernels split the depth over a thread-block cluster of n_slices(D)
-// blocks, SW-wide slices of two chunks each (stage_slice): every block
-// publishes its chunks' cosine_dots and tile_sq unsummed (slice_partials,
-// slice_sq), and a block that needs the cosine tile adds all the cluster's
-// in chunk order through distributed shared memory (cluster_dot,
-// cluster_rnorms; past CPORT, each block its share of the tile:
-// cluster_logit_dot, cluster_rnorms_tail), which gives chunked_cosine's
-// bits.  A block's shared
+//             added with __fadd_rn in the same order.
+// Any route may form a chunk's dot and sum of squares wherever it likes, as
+// long as it adds them in that order.  Up to WMAX deep, the backward keeps
+// every chunk of its tiles resident (stage_chunks, resident_rnorms,
+// resident_cosine).  Up to CMAX deep, both kernels split the depth over a
+// thread-block cluster of n_slices(D) blocks, SW-wide slices of two chunks
+// each (stage_slice): every block publishes its chunks' dots and tile_sq
+// unsummed (slice_partials, slice_sq), and a block that needs the cosine
+// tile adds all the cluster's in chunk order through distributed shared
+// memory (cluster_dot, cluster_rnorms; past CPORT, each block its share of
+// the tile: cluster_logit_dot, cluster_rnorms_tail).  A block's shared
 // memory does not depend on the cluster's size, so the same blocks run in
 // clusters of up to CLUSTER_MAX (16): past the portable size (8, to
 // CPORT = 2048 deep) the kernel must be allowed a non-portable cluster
-// (allow_cluster).  Beyond CMAX the backward's clusters walk the depth in
+// (allow_cluster).  Beyond CMAX both kernels' clusters walk the depth in
 // passes of one slice a block (passes_cluster, n_passes), each block's
 // share of a tile's cosines carried across them as one running sum in
-// chunk order: chunked_cosine's bits again (flash_aam_bwd.cu).
+// chunk order, and 1/||w|| comes from a kernel of its own first
+// (stream_rnorms).
 #pragma once
 
 #include "flash_aam_common.cuh"
@@ -45,7 +47,7 @@ namespace flash_aam {
 constexpr int TB = 32;          // batch rows per tile
 constexpr int TC = 32;          // classes per tile
 constexpr int DMAX = 256;       // largest depth of the resident tiles
-constexpr int KC = 128;         // depth chunk of chunked_cosine (D > DMAX)
+constexpr int KC = 128;         // depth chunk of the chunk order (D > DMAX)
 constexpr int WMAX = 512;       // deepest rows whose chunks stay resident
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -131,49 +133,10 @@ __device__ __forceinline__ void cosine_dots(float (&dot)[4], const float* es, co
     dot[q] = __fadd_rn(dot[q], xch[((warp ^ 4) * 4 + q) * 32 + lane]);
 }
 
-// The cosine tile for D > DMAX: dot (as cosine_dots lays it out) of the e
-// rows [row0, row0 + TB) against the W rows [col0, col0 + TC), chunk by
-// chunk.  Chunk k (depths [k KC, k KC + KC), zeros past D) of both tiles is
-// staged into eb[k % 2] and wb[k % 2], chunk k + 1's copy in flight while
-// chunk k's products run.  With NORMS, rinv[c] = 1 / ||W row c|| too (see
-// the top of this file), seen by other threads after the next __syncthreads.
-// Every thread of the block calls it.  It starts by staging into eb[0] and
-// wb[0], so the caller syncs between its last reads of eb, wb and xch and
-// the next call, and between its reads of rinv and the next call with NORMS.
-template <int VEC, bool NORMS>
-__device__ __forceinline__ void chunked_cosine(float (&dot)[4], const float* __restrict__ e,
-                                               int B, int row0, const float* __restrict__ w,
-                                               int C, int col0, int D, float* const (&eb)[2],
-                                               float* const (&wb)[2], float* rinv, float* xch) {
-  const int n_ch = n_chunks(D);
-  auto stage = [&](int k) {
-    const int d0 = k * KC;
-    tf32x3::stage_rows<VEC>(eb[k & 1], KC, e + d0, D, row0, TB, B, D - d0);
-    tf32x3::stage_rows<VEC>(wb[k & 1], KC, w + d0, D, col0, TC, C, D - d0);
-    tf32x3::commit();
-  };
-  stage(0);
-  float sq = 0.0f;
-  for (int k = 0; k < n_ch; ++k) {
-    tf32x3::wait_pending<0>();
-    __syncthreads();  // chunk k has landed, and every warp is done with chunk k - 1
-    if (k + 1 < n_ch) stage(k + 1);
-    float part[4];
-    cosine_dots(part, eb[k & 1], wb[k & 1], KC, xch);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) dot[q] = k ? __fadd_rn(dot[q], part[q]) : part[q];
-    if (NORMS) {
-      const float s = tile_sq(wb[k & 1], KC);
-      sq = k ? __fadd_rn(sq, s) : s;
-    }
-  }
-  if (NORMS && (threadIdx.x & 7) == 0) rinv[threadIdx.x >> 3] = __frsqrt_rn(fmaxf(sq, 1e-24f));
-}
-
 // Stage the 32 rows [row0, row0 + 32) of x (n_rows rows of D floats) at full
 // depth into dst as n_chunks(D) resident chunks: chunk k is the swizzled
-// [32][KC] tile dst + k * 32 * KC, filled as chunked_cosine fills its
-// buffers (zeros past D and past n_rows).  Commits no group.
+// [32][KC] tile dst + k * 32 * KC (zeros past D and past n_rows).  Commits
+// no group.
 template <int VEC>
 __device__ __forceinline__ void stage_chunks(float* dst, const float* __restrict__ x,
                                              int row0, int n_rows, int D) {
@@ -182,7 +145,7 @@ __device__ __forceinline__ void stage_chunks(float* dst, const float* __restrict
     tf32x3::stage_rows<VEC>(dst + k * TB * KC, KC, x + k * KC, D, row0, TB, n_rows, D - k * KC);
 }
 
-// chunked_cosine's 1/||w|| from a resident TC-row tile of n_ch chunks.
+// The chunk order's 1/||w|| from a resident TC-row tile of n_ch chunks.
 // Other threads see it after the next __syncthreads.
 __device__ __forceinline__ void resident_rnorms(const float* ws, int n_ch, float* rinv) {
   float sq = tile_sq(ws, KC);
@@ -190,7 +153,7 @@ __device__ __forceinline__ void resident_rnorms(const float* ws, int n_ch, float
   if ((threadIdx.x & 7) == 0) rinv[threadIdx.x >> 3] = __frsqrt_rn(fmaxf(sq, 1e-24f));
 }
 
-// chunked_cosine's dot from resident tiles es and ws of n_ch chunks.  The
+// The chunk order's dot from resident tiles es and ws of n_ch chunks.  The
 // chunks take the two exchange buffers xch and xch + WARPS * 128 in turn,
 // so no block-wide barrier sits between them: a warp reaches chunk k + 2's
 // writes only past chunk k + 1's pair barrier, which its partner reaches
@@ -318,7 +281,7 @@ __device__ __forceinline__ void slice_sq(const float* ws, int k0, int n_ch, floa
   }
 }
 
-// chunked_cosine's dot from the partials the cluster published
+// The chunk order's dot from the partials the cluster published
 // (slice_partials): chunk k's lies in block k / 2's pub, added with
 // __fadd_rn in chunk order.  Called between a cluster barrier that follows
 // every block's slice_partials and the next one.
@@ -332,7 +295,7 @@ __device__ __forceinline__ void cluster_dot(float (&dot)[4], const float* pub, i
   }
 }
 
-// chunked_cosine's 1/||w|| from the sums of squares the cluster published
+// The chunk order's 1/||w|| from the sums of squares the cluster published
 // (slice_sq), added in chunk order; threads [0, TC) write rinv, which other
 // threads see after the next __syncthreads.
 __device__ __forceinline__ void cluster_rnorms(const float* sq, int n_ch, float* rinv) {
@@ -419,7 +382,7 @@ __device__ __forceinline__ int slot_col(int s) {
   return 8 * cosine_ntile(t >> 5) + 2 * (t & 3) + (s & 1);
 }
 
-// chunked_cosine's dot of the thread's slot of share sh from the partials
+// The chunk order's dot of the thread's slot of share sh from the partials
 // the cluster published (slice_partials: chunk k's in block k / 2's pub,
 // at (k % 2) THREADS 4 + s), added with __fadd_rn in chunk order; 0 for a
 // thread that holds no slot; N reads in flight.  Called between the
@@ -458,11 +421,12 @@ __device__ __forceinline__ void cluster_rnorms_tail(const float* sq, int n_ch, f
 // partials unsummed and, past a cluster barrier, adds the partials
 // published since the last one onto the running sum of its share's slots,
 // which it carries from pass to pass: the passes go in depth order, so the
-// sum adds every chunk in chunk order, chunked_cosine's sum
-// (flash_aam_bwd.cu).  The fewest passes (CLUSTER_MAX slices each), then
-// the fewest blocks that still cover the depth in that many passes: every
-// pass but the last is full.  n_c > 8 at every D > CMAX, so these clusters
-// share out each tile as the cluster routes past CPORT do.
+// sum adds every chunk in chunk order (flash_aam_bwd.cu: bwd_passes_kernel;
+// flash_aam_fwd.cu: fwd_passes_kernel).  The fewest passes (CLUSTER_MAX
+// slices each), then the fewest blocks that still cover the depth in that
+// many passes: every pass but the last is full.  n_c > 8 at every D > CMAX,
+// so these clusters share out each tile as the cluster routes past CPORT
+// do.  1/||w|| comes from stream_rnorms, in a kernel launched first.
 __host__ __device__ inline int passes_cluster(int D) {
   const int n_s = n_slices(D);
   const int p = (n_s + CLUSTER_MAX - 1) / CLUSTER_MAX;
@@ -483,6 +447,34 @@ __device__ __forceinline__ float4 cluster_ld4(const float* p, int rank) {
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
                : "r"(a));
   return v;
+}
+
+// rinv[c] = the chunk order's 1/||W row c|| for the TC classes of class
+// tile blockIdx.x (those below C), streaming its chunks through the two
+// halves of ws (2 x TC x KC floats of shared memory), chunk k + 1's copy in
+// flight while chunk k's squares are summed: the body of both kernels'
+// norms kernels on their passes routes (bwd_norms_kernel,
+// fwd_norms_kernel).
+template <int VEC>
+__device__ __forceinline__ void stream_rnorms(float* ws, const float* __restrict__ w, int C,
+                                              int D, float* __restrict__ rinv) {
+  const int col0 = blockIdx.x * TC;
+  const int n_ch = n_chunks(D);
+  auto stage = [&](int k) {
+    tf32x3::stage_rows<VEC>(ws + (k & 1) * TC * KC, KC, w + k * KC, D, col0, TC, C, D - k * KC);
+    tf32x3::commit();
+  };
+  stage(0);
+  float sq = 0.0f;
+  for (int k = 0; k < n_ch; ++k) {
+    tf32x3::wait_pending<0>();
+    __syncthreads();  // chunk k has landed, and every warp is done with chunk k - 1
+    if (k + 1 < n_ch) stage(k + 1);
+    const float t = tile_sq(ws + (k & 1) * TC * KC, KC);
+    sq = k ? __fadd_rn(sq, t) : t;
+  }
+  const int c = col0 + (threadIdx.x >> 3);
+  if ((threadIdx.x & 7) == 0 && c < C) rinv[c] = __frsqrt_rn(fmaxf(sq, 1e-24f));
 }
 
 }  // namespace flash_aam

@@ -51,9 +51,9 @@ DEFAULT_TILE = 2048
 _NEG_INF = -1e30
 _KERNEL = "flash_aam_fwd"
 _BWD_KERNEL = "flash_aam_bwd"
-# CUDA blocks per SM to aim for when the forward's tiles and chunked routes
-# split the class axis: two of their blocks fill an SM's shared memory.  Its
-# cluster route and every route of the backward ask their library instead
+# CUDA blocks per SM to aim for when the forward's tiles route splits the
+# class axis: two of its blocks fill an SM's shared memory.  Its cluster and
+# passes routes and every route of the backward ask their library instead
 # (_occupancy).
 _BLOCKS_PER_SM = 2
 
@@ -191,13 +191,17 @@ def _on_card(e_hat, others, op):
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    """(launch function, block rows, block classes) of the built library."""
+    """(launch function, block rows, block classes, scratch function) of the
+    built library: the scratch function gives the floats of scratch that a
+    launch needs past the partial states, for (B, C, D)."""
     lib = _native.load(_KERNEL)
     fn = lib.flash_aam_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float] * 5
                    + [ctypes.c_void_p] * 6)
-    return fn, lib.flash_aam_fwd_block_rows(), lib.flash_aam_fwd_block_classes()
+    scratch = lib.flash_aam_fwd_scratch
+    scratch.argtypes, scratch.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return fn, lib.flash_aam_fwd_block_rows(), lib.flash_aam_fwd_block_classes(), scratch
 
 
 @functools.lru_cache(maxsize=None)
@@ -224,16 +228,20 @@ def _n_splits(n_tiles, n_btiles, units, per_unit):
 
 
 # class tiles' worth of time that a worker of the forward's cluster route
-# spends before its first tile (staging and splitting its e slice)
+# spends before its first tile (staging and splitting its e slice); on the
+# passes route a worker does so once a depth pass, and every tile step once
+# a pass too, so its time is the passes times that of a cluster worker and
+# the same split ends first
 _START_TILES = 1
 
 
 def _span(n_tiles, n_btiles, clusters, tps):
-    """Tile steps until the last worker of the forward's cluster route ends
-    with splits of ``tps`` class tiles: the card starts the (batch tile,
-    split) clusters in grid order (split by split; the last split's are the
-    short ones) on the ``clusters`` that it holds at once, each as soon as
-    one ends, and each takes its split's tiles and _START_TILES more."""
+    """Tile steps until the last worker of the forward's cluster (or
+    passes) route ends with splits of ``tps`` class tiles: the card starts
+    the (batch tile, split) clusters in grid order (split by split; the last
+    split's are the short ones) on the ``clusters`` that it holds at once,
+    each as soon as one ends, and each takes its split's tiles and
+    _START_TILES more (on the passes route, each pass)."""
     n_splits = -(-n_tiles // tps)
     full = tps + _START_TILES
     last = n_tiles - (n_splits - 1) * tps + _START_TILES
@@ -250,14 +258,14 @@ def _span(n_tiles, n_btiles, clusters, tps):
 
 @functools.lru_cache(maxsize=None)
 def _cluster_splits(n_tiles, n_btiles, clusters):
-    """(class tiles per split, splits) for the forward's cluster route,
-    whose (batch tile, split) workers are clusters with nothing to fill the
-    card around them: the split whose last worker ends first (_span), over
-    every split size from 1 to n_tiles and _n_splits' even share; a tie
-    goes to the fewer workers.  Where the workers outnumber the clusters,
-    this takes more waves of shorter workers over a last wave that leaves
-    clusters idle (at 14 clusters and 8 batch tiles, 4 splits of 66 tiles,
-    not the even share's 2 of 131: 134 tile steps, not 198)."""
+    """(class tiles per split, splits) for the forward's cluster and passes
+    routes, whose (batch tile, split) workers are clusters with nothing to
+    fill the card around them: the split whose last worker ends first
+    (_span), over every split size from 1 to n_tiles and _n_splits' even
+    share; a tie goes to the fewer workers.  Where the workers outnumber the
+    clusters, this takes more waves of shorter workers over a last wave that
+    leaves clusters idle (at 14 clusters and 8 batch tiles, 4 splits of 66
+    tiles, not the even share's 2 of 131: 134 tile steps, not 198)."""
     candidates = set(range(1, n_tiles + 1))
     candidates.add(_n_splits(n_tiles, n_btiles, clusters, 1)[0])
     best = min(candidates, key=lambda t: (_span(n_tiles, n_btiles, clusters, t), -t))
@@ -265,7 +273,7 @@ def _cluster_splits(n_tiles, n_btiles, clusters):
 
 
 # each library's routes, in the order of its <kernel>_route(D) codes
-_ROUTES = {_KERNEL: ("tiles", "cluster", "chunks"),
+_ROUTES = {_KERNEL: ("tiles", "cluster", "passes"),
            _BWD_KERNEL: ("tiles", "wide", "passes", "cluster")}
 
 
@@ -279,12 +287,12 @@ def _query(kernel: str, name: str, D: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _route(kernel: str, D: int) -> str:
     """A kernel's route for depth D, as its library picks it.  The
-    forward's: ``tiles`` (D ≤ 256), ``cluster`` (to 4096) or ``chunks``; the
+    forward's: ``tiles`` (D ≤ 256), ``cluster`` (to 4096) or ``passes``; the
     backward's: ``tiles`` (D ≤ 256), ``wide`` (to 512), ``cluster`` (to
     4096) or ``passes``.  A cluster route runs clusters of ⌈D/256⌉ blocks:
-    up to 8 (D ≤ 2048) at the portable size, 9–16 past it; the passes
-    route clusters of 9–16 that walk the depth in passes
-    (:func:`bwd_passes_geometry`)."""
+    up to 8 (D ≤ 2048) at the portable size, 9–16 past it; a passes route
+    clusters of 9–16 that walk the depth in passes
+    (:func:`passes_geometry`)."""
     return _ROUTES[kernel][_query(kernel, f"{kernel}_route", D)]
 
 
@@ -292,9 +300,8 @@ def _route(kernel: str, D: int) -> str:
 def _occupancy(kernel: str, index: int, D: int, query: str) -> int:
     """The library's occupancy ``query`` for depth D on card ``index``:
     blocks of the route an SM (``flash_aam_bwd_blocks_per_sm``) or clusters
-    of the route on the card (``flash_aam_fwd_clusters``: the forward's
-    cluster route; ``flash_aam_bwd_clusters``: the backward's cluster and
-    passes routes)."""
+    of the route on the card (``flash_aam_fwd_clusters`` and
+    ``flash_aam_bwd_clusters``: each kernel's cluster and passes routes)."""
     with torch.cuda.device(index):
         n = _query(kernel, query, D)
     if n < 1:
@@ -302,15 +309,15 @@ def _occupancy(kernel: str, index: int, D: int, query: str) -> int:
     return n
 
 
-def bwd_passes_geometry(D: int):
-    """(depth passes, blocks a cluster) of the backward's passes route for
-    depth D > 4096, as ``flash_aam_bwd.cu`` (``n_passes``,
+def passes_geometry(D: int):
+    """(depth passes, blocks a cluster) of both kernels' passes routes for
+    depth D > 4096, as ``flash_aam_cosine.cuh`` (``n_passes``,
     ``passes_cluster``) lays it out: the depth's ⌈D/256⌉ slices in the
     fewest passes of at most 16 (Hopper's largest cluster), then the fewest
     blocks that cover them in that many passes, one slice a block a pass.
     D = 4608: 2 passes of 9 blocks; 8192: 2 of 16; 12288: 3 of 16."""
     if D <= 4096:
-        raise ValueError(f"the passes route takes D > 4096, not {D}")
+        raise ValueError(f"the passes routes take D > 4096, not {D}")
     n_s = -(-D // 256)
     blocks = -(-n_s // -(-n_s // 16))
     return -(-n_s // blocks), blocks
@@ -320,18 +327,32 @@ def bwd_passes_de_workers(D: int) -> int:
     """The de workers (clusters) of the passes route for each batch tile and
     class split: one for each half of the tile's rows and each output group
     of two depth passes."""
-    return 2 * -(-bwd_passes_geometry(D)[0] // 2)
+    return 2 * -(-passes_geometry(D)[0] // 2)
 
 
-@functools.lru_cache(maxsize=None)
-def _fwd_cluster_size(D: int) -> int:
-    """Blocks of one (batch tile, split) worker of the forward's route for
-    depth D, each writing its own partial states."""
-    return _query(_KERNEL, "flash_aam_fwd_cluster_size", D)
+def fwd_geometry(D: int):
+    """(route, depth passes, blocks a worker) of the forward for depth D, as
+    ``flash_aam_fwd.cu`` (``route_of``, ``flash_aam_fwd_passes``,
+    ``cluster_size``) lays it out: ``tiles`` (D ≤ 256), one block a (batch
+    tile, split) worker; ``cluster`` (to 4096), a cluster of ⌈D/256⌉;
+    ``passes`` beyond, a cluster walking the depth in passes
+    (:func:`passes_geometry`).  Each block writes its own partial states."""
+    if D <= 256:
+        return "tiles", 1, 1
+    if D <= 4096:
+        return "cluster", 1, -(-D // 256)
+    return ("passes",) + passes_geometry(D)
+
+
+def fwd_states(D: int, n_splits: int) -> int:
+    """The partial states of each batch row that the forward's scratch holds
+    for ``n_splits`` class splits, merged in order after the launch: one for
+    each block of each split's worker."""
+    return n_splits * fwd_geometry(D)[2]
 
 
 def _launch(e_hat, weight, labels, zt, m, s):
-    fn, bm, bn = _kernel()
+    fn, bm, bn, scratch = _kernel()
     B, D = e_hat.shape
     C = weight.shape[0]
     dev = e_hat.device
@@ -340,14 +361,15 @@ def _launch(e_hat, weight, labels, zt, m, s):
     index = _device_index(dev)
     route = _route(_KERNEL, D)
     n_tiles, n_btiles = -(-C // bn), -(-B // bm)
-    if route == "cluster":  # each worker is a cluster: split by the resident ones
-        tiles_per_split, n_splits = _cluster_splits(
-            n_tiles, n_btiles, _occupancy(_KERNEL, index, D, "flash_aam_fwd_clusters"))
-    else:
+    if route == "tiles":
         tiles_per_split, n_splits = _n_splits(n_tiles, n_btiles, _sm_count(index),
                                               _BLOCKS_PER_SM)
-    part = torch.empty((4, n_splits * _fwd_cluster_size(D), B), dtype=torch.float32,
-                       device=dev)
+    else:  # each worker is a cluster: split by the resident ones
+        tiles_per_split, n_splits = _cluster_splits(
+            n_tiles, n_btiles, _occupancy(_KERNEL, index, D, "flash_aam_fwd_clusters"))
+    # the partial states, then (passes route) the running sums and the norms
+    part = torch.empty(4 * fwd_states(D, n_splits) * B + scratch(B, C, D),
+                       dtype=torch.float32, device=dev)
     out = torch.empty((4, B), dtype=torch.float32, device=dev)
     cos_m, sin_m, th, mm = _margin_consts(m)
     with torch.cuda.device(dev):  # the launch goes to dev's current stream

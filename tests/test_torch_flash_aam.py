@@ -207,28 +207,28 @@ def test_cpu_call_counts_no_route():
     zt = port_flash._margined_target_z(e_hat, wt, lt, 0.2, 30.0)
     lse = port_flash.flash_aam_fwd(e_hat, wt, lt, zt)[0]
     port_flash.flash_aam_bwd(e_hat, wt, lt, lse, torch.ones(16))
-    assert port_flash.flash_aam_fwd.route_launches == {"tiles": 0, "cluster": 0, "chunks": 0}
+    assert port_flash.flash_aam_fwd.route_launches == {"tiles": 0, "cluster": 0, "passes": 0}
     assert port_flash.flash_aam_bwd.route_launches == {"tiles": 0, "wide": 0, "passes": 0,
                                                        "cluster": 0}
 
 
 # D -> (depth passes, blocks a cluster, de workers a batch tile and split) of
-# the backward's passes route (D > 4096): 4097 (a last slice of one column)
-# to 8192 in two passes of 9 to 16 blocks, then three, four and five
+# the passes routes (D > 4096): 4097 (a last slice of one column) to 8192 in
+# two passes of 9 to 16 blocks, then three, four and five
 PASSES_GEOMETRY = {4097: (2, 9, 2), 4608: (2, 9, 2), 6001: (2, 12, 2), 8192: (2, 16, 2),
                    8193: (3, 11, 4), 12288: (3, 16, 4), 12289: (4, 13, 4), 20000: (5, 16, 6)}
 
 
 @pytest.mark.parametrize("D", sorted(PASSES_GEOMETRY))
 def test_bwd_passes_geometry(D):
-    """bwd_passes_geometry, the library's n_passes and passes_cluster: the
+    """passes_geometry, the libraries' n_passes and passes_cluster: the
     ⌈D/256⌉ slices in the fewest passes of at most 16, each pass on a
     cluster of 9 to 16 blocks (past the portable 8, within Hopper's 16),
     the fewest that cover the slices in that many passes, so that only the
-    last pass has idle blocks; and the de workers, a half tile and an output
-    group of two passes each."""
+    last pass has idle blocks; and the backward's de workers, a half tile
+    and an output group of two passes each."""
     passes, blocks, workers = PASSES_GEOMETRY[D]
-    assert port_flash.bwd_passes_geometry(D) == (passes, blocks)
+    assert port_flash.passes_geometry(D) == (passes, blocks)
     assert port_flash.bwd_passes_de_workers(D) == workers
     n_s = -(-D // 256)
     assert 9 <= blocks <= 16
@@ -238,7 +238,31 @@ def test_bwd_passes_geometry(D):
 
 def test_bwd_passes_geometry_is_past_the_cluster_route():
     with pytest.raises(ValueError):
-        port_flash.bwd_passes_geometry(4096)
+        port_flash.passes_geometry(4096)
+
+
+@pytest.mark.parametrize("D", [4097, 4608, 6001, 8192, 8193, 12288])
+def test_fwd_passes_geometry(D):
+    """Past 4096 the forward takes its passes route on the backward's
+    geometry (one layout in flash_aam_cosine.cuh): the same depth passes and
+    clusters as PASSES_GEOMETRY, and its scratch holds a partial state of
+    each row for every block of each split's cluster, n_splits × blocks."""
+    passes, blocks, _ = PASSES_GEOMETRY[D]
+    assert port_flash.fwd_geometry(D) == ("passes", passes, blocks)
+    assert port_flash.fwd_geometry(D)[1:] == port_flash.passes_geometry(D)
+    for n_splits in (1, 7, 58):
+        assert port_flash.fwd_states(D, n_splits) == n_splits * blocks
+
+
+@pytest.mark.parametrize("D,route,blocks", [(37, "tiles", 1), (256, "tiles", 1),
+                                            (257, "cluster", 2), (2048, "cluster", 8),
+                                            (2049, "cluster", 9), (4096, "cluster", 16)])
+def test_fwd_geometry_up_to_the_passes_route(D, route, blocks):
+    """Up to 4096 the forward's workers are a block (the tiles route) or a
+    cluster of ⌈D/256⌉ blocks in one pass (the cluster route), each block
+    with its own partial states."""
+    assert port_flash.fwd_geometry(D) == (route, 1, blocks)
+    assert port_flash.fwd_states(D, 5) == 5 * blocks
 
 
 # (class tiles, batch tiles, SMs, blocks an SM): the kernels' shapes on an
@@ -285,9 +309,9 @@ BLOCK_ROUTE_SPLITS = {
 
 
 def test_split_rule_of_the_block_routes_is_unchanged():
-    """The tiles and chunked routes of both kernels and the backward's wide
-    route split by resident blocks (SMs × blocks an SM) and give the same
-    numbers as before the cluster routes."""
+    """The tiles routes of both kernels and the backward's wide route split
+    by resident blocks (SMs × blocks an SM) and give the same numbers as
+    before the cluster routes."""
     assert set(BLOCK_ROUTE_SPLITS) == set(SPLIT_CASES)
     for case, want in BLOCK_ROUTE_SPLITS.items():
         assert port_flash._n_splits(*case) == want, case
@@ -376,6 +400,32 @@ def test_forward_cluster_splits_keep_one_wave(case):
         assert span < min(one_wave)
     even = port_flash._n_splits(n_tiles, n_btiles, clusters, 1)[0]
     assert span <= port_flash._span(*case, even)
+
+
+# (class tiles, batch tiles, clusters the card holds at once) of the
+# forward's passes route on an H100 (23 clusters of 9 at D = 4608, 16 of 12
+# at 6001, 14 of 16 at 8192, two blocks an SM) at B = 100, 128 and 256 over
+# 7001 and 7325 classes, then small and ragged cards
+PASSES_SPLIT_CASES = [(219, 4, 23), (229, 4, 23), (229, 8, 23), (219, 4, 16), (229, 8, 16),
+                      (219, 2, 14), (229, 8, 14), (1, 1, 23), (5, 3, 2), (63, 2, 1)]
+
+
+@pytest.mark.parametrize("n_tiles,n_btiles,clusters", PASSES_SPLIT_CASES)
+def test_passes_route_workers_cover_every_class_tile_once(n_tiles, n_btiles, clusters):
+    """The forward's passes route splits as its cluster route
+    (_cluster_splits), and its grid has one cluster for each (batch tile,
+    split) worker, cluster u on batch tile u % n_rt of split u / n_rt, as
+    fwd_passes_kernel reads it: every (batch tile, class tile) pair lies in
+    exactly one worker and no worker is empty, whatever the depth passes
+    (each worker walks every pass over the same tiles)."""
+    tps, n_splits = port_flash._cluster_splits(n_tiles, n_btiles, clusters)
+    seen = []
+    for u in range(n_btiles * n_splits):
+        bt, split = u % n_btiles, u // n_btiles
+        lo, hi = split * tps, min(split * tps + tps, n_tiles)
+        assert lo < hi
+        seen += [(bt, t) for t in range(lo, hi)]
+    assert sorted(seen) == [(bt, t) for bt in range(n_btiles) for t in range(n_tiles)]
 
 
 def test_bwd_wrapper_checks_inputs():

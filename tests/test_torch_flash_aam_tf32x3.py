@@ -18,17 +18,20 @@ _off_the_clip).  The saturated case's cosine is exactly 1.0.  It also shows
 that the split's error is at least 10× below that of one TF32 product (big
 parts only), so the checks can tell the two apart.
 
-Rows deeper than 256 take chunked_cosine's bits (flash_aam_cosine.cuh),
+Rows deeper than 256 take the chunk order's bits (flash_aam_cosine.cuh),
 on every deep route of both kernels: the depth in chunks of 128, the last
 padded with zeros, each chunk's dot the sum of its two 64-deep halves, each
 half the f32 sum of its 16-deep 3×TF32 products in order, and the chunks'
 dots added in chunk order.  The forward's cluster route (fwd_cluster_kernel,
 256 < D ≤ 4096) adds the chunks' dots and sums of squares that the
-cluster's blocks publish in that same order.  mm_chunked emulates that
-order for the depth product and is held to the Pallas kernels at the same
-bars, up to D = 4096, a cluster of 16 (clusters of 9, 12 and 16 at D =
-2304, 3001 and 4096, past the portable size of 8), and past it at D = 4608,
-6001 and 8192, where the forward streams the chunks itself.  Up to
+cluster's blocks publish in that same order; past 4096 its passes route
+(fwd_passes_kernel) carries each cosine's running sum in that order across
+the depth passes of a cluster, and its norms come from a kernel of their
+own, in the same order.  mm_chunked emulates that order for the depth
+product and is held to the Pallas kernels at the same bars, up to D = 4096,
+a cluster of 16 (clusters of 9, 12 and 16 at D = 2304, 3001 and 4096, past
+the portable size of 8), and past it at D = 4097 (a last chunk of one
+column), 4608, 6001, 8192 and 8193 (three passes).  Up to
 D = 512 the backward takes its wide route (flash_aam_bwd.cu:
 bwd_wide_kernel), which forms the same cosines but sums dW's projection
 dŵ·ŵ over the whole depth in one pass, in its warps' order (row_dot_wide);
@@ -42,8 +45,8 @@ slice order (row_dot_sliced), held to the Pallas kernel at D = 777, 1024,
 the depth in passes, each block accumulating two 256-wide slices of half a
 tile: the cosines in the same chunk order, carried across the passes, and
 dW's projection in the same order per slice and over the slices
-(row_dot_sliced again), held to the Pallas kernel at D = 4608, 6001 (the
-4-byte copies and a ragged last slice) and 8192.
+(row_dot_sliced again), held to the Pallas kernel at D = 4097, 4608, 6001
+(the 4-byte copies and a ragged last slice), 8192 and 8193.
 """
 
 import numpy as np
@@ -119,7 +122,9 @@ DEEP_CASES = {"D300": (make(B=24, D=300, C=200, seed=12), 128),
               "D4096": (make(B=16, D=4096, C=100, seed=19), 128),
               "D4608": (make(B=16, D=4608, C=100, seed=20), 128),
               "D6001": (make(B=16, D=6001, C=100, seed=21), 128),
-              "D8192": (make(B=16, D=8192, C=100, seed=22), 128)}
+              "D8192": (make(B=16, D=8192, C=100, seed=22), 128),
+              "D4097": (make(B=16, D=4097, C=100, seed=23), 128),
+              "D8193": (make(B=16, D=8193, C=100, seed=24), 128)}
 
 
 def row_dot_wide(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -331,7 +336,8 @@ def test_tf32x3_bwd_matches_pallas_bwd(name, monkeypatch):
     cosine (mm_chunked) and dW's projection in the route's order, the wide
     route's (row_dot_wide) at D = 300 and 512, the cluster route's
     (row_dot_sliced) at D = 777, 1024, 2048, 2304, 3001 and 4096, and the
-    passes route's (row_dot_sliced too) at D = 4608, 6001 and 8192."""
+    passes route's (row_dot_sliced too) at D = 4097, 4608, 6001, 8192 and
+    8193."""
     (emb, w, labels), tile = {**CASES, **DEEP_CASES}[name]
     mm = mm_tf32x3
     if name in DEEP_CASES:

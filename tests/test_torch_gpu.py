@@ -21,16 +21,17 @@ The two kernels form the same cosine bits: with one class, the backward's
 gradients from the forward's own lse are exactly 0, at D <= 256 and at
 D > 256, where the forward splits the depth over a thread-block cluster up
 to D = 4096 (its cluster route; clusters of up to 8 blocks to D = 2048, the
-portable size, and of 9 to 16 past it) and streams it in 128-deep chunks
-beyond, and the backward keeps the chunks resident up to D = 512 (its wide
-route), splits them over a cluster up to 4096 (its cluster route) and
-beyond walks them in depth passes over a cluster (its passes route; D =
-300, 301, 512, 777, 1024, 2048, 2304, 3001, 4096, 4097, 4608, 6001 and
-8192 are held to the plain version in both directions, each on its
-routes; D = 301, 777, 3001 and 6001 take the 4-byte copies).  Each backward route
-holds as many blocks on an SM as its shared memory allows, and each
-cluster route as many clusters as the card holds at once, at least one of
-16.  The flash gradients
+portable size, and of 9 to 16 past it) and beyond walks it in depth passes
+over a cluster (its passes route), and the backward keeps the chunks
+resident up to D = 512 (its wide route), splits them over a cluster up to
+4096 (its cluster route) and beyond walks them in depth passes over a
+cluster (its passes route; D = 300, 301, 512, 777, 1024, 2048, 2304, 3001,
+4096, 4097, 4608, 6001, 8192 and 8193 are held to the plain version in both
+directions, each on its routes; D = 301, 777, 3001 and 6001 take the 4-byte
+copies).  Each backward route and the forward's passes route hold as many
+blocks on an SM as their shared memory allows, and each cluster and passes
+route as many clusters as the card holds at once, at least one of 16.  The
+flash gradients
 against the dense head's autograd (cuBLAS f32) at rtol 2e-3, atol 1e-6 as
 tests/test_flash_aam.py, and row by row within 1e-3.  Labels outside
 [0, C), the shard-local labels of a class-sharded head, give no target
@@ -86,7 +87,7 @@ def test_flash_aam_fwd_rejects_bad_inputs():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("D", [256, 300, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("D", [256, 300, 512, 1024, 2048, 4096, 4097, 4608, 6001, 8192, 8193])
 def test_flash_aam_fwd_is_deterministic(D):
     dev = _card()
     rng = np.random.default_rng(3)
@@ -231,7 +232,7 @@ def test_flash_aam_off_shard_labels_match_plain(B, C, D, how):
 
 
 def _fwd_route(D):
-    return "tiles" if D <= 256 else "cluster" if D <= 4096 else "chunks"
+    return "tiles" if D <= 256 else "cluster" if D <= 4096 else "passes"
 
 
 def _bwd_route(D):
@@ -242,7 +243,7 @@ def _bwd_route(D):
 @pytest.mark.parametrize("D", [300, 301, 512, 777, 1024, 2048, 2304, 3001, 4096, 4097, 4608,
                                6001, 8192, 8193])
 def test_flash_aam_deep_rows_match_plain(D):
-    """D > 256 (the forward's cluster route up to 4096 and its chunked route
+    """D > 256 (the forward's cluster route up to 4096 and its passes route
     beyond; the backward's wide route up to 512, its cluster route to 4096
     and its passes route beyond; D = 777 takes the 4-byte copies and a
     ragged last slice, 2048 a cluster of 8, 2304 one of 9, 3001 one of 12
@@ -266,28 +267,53 @@ def test_flash_aam_deep_rows_match_plain(D):
 @pytest.mark.parametrize("D", [256, 257, 512, 513, 2048, 2049, 3001, 4096, 4097, 4608])
 def test_flash_aam_fwd_route_by_depth(D):
     """The forward's library picks the tiles route up to D = 256, the
-    cluster route to 4096 (clusters of ceil(D / 256) blocks, up to 16, at
-    least one of which the card holds at once, and no more blocks than two
-    an SM) and the chunked route beyond, and a launch is counted on that
-    route."""
+    cluster route to 4096 (clusters of ceil(D / 256) blocks, up to 16) and
+    the passes route beyond (clusters of passes_cluster(D) blocks walking
+    n_passes(D) depth passes, passes_geometry), as fwd_geometry says; on
+    both cluster routes the card holds at least one cluster at once, and no
+    more blocks than two an SM; and a launch is counted on that route."""
     dev = _card()
     index = dev.index or 0
     kernel = flash_aam._KERNEL
     route = _fwd_route(D)
     assert flash_aam._route(kernel, D) == route
     size = flash_aam._query(kernel, "flash_aam_fwd_cluster_size", D)
-    if route == "cluster":
-        assert size == -(-D // 256)
+    passes = flash_aam._query(kernel, "flash_aam_fwd_passes", D)
+    assert flash_aam.fwd_geometry(D) == (route, passes, size)
+    if route == "tiles":
+        assert size == 1 and passes == 1
+        assert flash_aam._query(kernel, "flash_aam_fwd_clusters", D) == -1
+    else:
+        want = (1, -(-D // 256)) if route == "cluster" else flash_aam.passes_geometry(D)
+        assert (passes, size) == want
         clusters = flash_aam._occupancy(kernel, index, D, "flash_aam_fwd_clusters")
         sms = torch.cuda.get_device_properties(index).multi_processor_count
         assert 1 <= clusters and clusters * size <= 2 * sms
-    else:
-        assert size == 1
-        assert flash_aam._query(kernel, "flash_aam_fwd_clusters", D) == -1
     before = dict(flash_aam.flash_aam_fwd.route_launches)
     test_flash_aam_fwd_matches_plain(40, 300, D)
     after = flash_aam.flash_aam_fwd.route_launches
     assert {k: after[k] - before[k] for k in after} == {k: int(k == route) for k in after}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [4608, 6001, 8192, 12288])
+def test_flash_aam_fwd_passes_occupancy(D):
+    """The forward's passes route holds two blocks an SM (its 114,688 bytes
+    of shared memory each) and at least one cluster of passes_cluster(D)
+    blocks at once, no more blocks than two an SM, with the backward's depth
+    passes and cluster size."""
+    dev = _card()
+    index = dev.index or 0
+    kernel = flash_aam._KERNEL
+    assert flash_aam._occupancy(kernel, index, D, "flash_aam_fwd_blocks_per_sm") == 2
+    passes = flash_aam._query(kernel, "flash_aam_fwd_passes", D)
+    size = flash_aam._query(kernel, "flash_aam_fwd_cluster_size", D)
+    assert (passes, size) == flash_aam.passes_geometry(D) == (
+        flash_aam._query(flash_aam._BWD_KERNEL, "flash_aam_bwd_passes", D),
+        flash_aam._query(flash_aam._BWD_KERNEL, "flash_aam_bwd_cluster_size", D))
+    clusters = flash_aam._occupancy(kernel, index, D, "flash_aam_fwd_clusters")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    assert 1 <= clusters and clusters * size <= 2 * sms
 
 
 @pytest.mark.gpu
@@ -300,7 +326,7 @@ def test_flash_aam_bwd_blocks_per_sm_by_route(D, blocks):
     cluster (512 < D <= 4096) and passes routes, one for the wide route
     (256 < D <= 512).  The cluster route also reports its cluster size,
     ceil(D / 256), the passes route its cluster size and depth passes
-    (bwd_passes_geometry), and both how many clusters the card holds at
+    (passes_geometry), and both how many clusters the card holds at
     once: at least one, and no more blocks than its SMs hold."""
     dev = _card()
     index = dev.index or 0
@@ -309,7 +335,7 @@ def test_flash_aam_bwd_blocks_per_sm_by_route(D, blocks):
     size = flash_aam._query(kernel, "flash_aam_bwd_cluster_size", D)
     passes = flash_aam._query(kernel, "flash_aam_bwd_passes", D)
     if D > 512:
-        want = (1, -(-D // 256)) if D <= 4096 else flash_aam.bwd_passes_geometry(D)
+        want = (1, -(-D // 256)) if D <= 4096 else flash_aam.passes_geometry(D)
         assert (passes, size) == want
         clusters = flash_aam._occupancy(kernel, index, D, "flash_aam_bwd_clusters")
         sms = torch.cuda.get_device_properties(index).multi_processor_count
