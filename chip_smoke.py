@@ -160,10 +160,28 @@ Phases, one JSON line each:
           corpus of 512 speakers x 2 utterances (a cut of the corpus
           phase's 7325), each rank's crops from its own shard; (d)
           dryrun_multichip(2); the phase within 150 s;
+  bigspk  large speaker counts through stage 3 (pkr_tpu_torch.tools.bigspk):
+          run_train with the device cache on a synthetic feature dir of 768
+          train and 64 cv utterances, ResNet-34 at full width, B = 256 x 200,
+          4 epochs, the flash head at 7325 and 500,000 speakers and the
+          dense head at 500,000; gates: finite losses, a cv pass each epoch,
+          every flash launch on the tiles routes, none on the dense run;
+          then both kernels at 256 x 500,000 x 256 against their plain
+          versions, as in the kernel phase; ms/step and examples/s of each
+          run; the phase within 150 s;
+  quality seed 0 of the end-to-end quality study at full size
+          (pkr_tpu_torch.tools.parity_e2e.run_once: 512 synthetic speakers,
+          stage-1 features, 480 f32 ResNet-34 steps of the two-phase recipe,
+          786,432 trials), from the banked rows' initial weights and from
+          the port's; gates: TF32 off, EER and minDCF(.01) within mean ± 4
+          sd of docs/parity_rows.jsonl's 28 values (from the port's weights:
+          below the top); each part's wall time and the gaps to seed 0's
+          banked row; the phase within 150 s;
   kernels every kernel with its launches on the paths and its errors (the
           backward's also with a `deep` record of its times at 256 × 7325 ×
-          512), then one entry for each deeper route: the backward's wide
-          route (timed at 256 × 7325 × 512), each cluster route (timed at
+          512; both with a `shapes` record at 256 × 500,000 × 256), then
+          one entry for each deeper route: the backward's wide route
+          (timed at 256 × 7325 × 512), each cluster route (timed at
           100 × 7001 × 1024, with a `deep` record at 256 × 7325 × 1024 and
           `shapes` at 100 × 7001 × 2304 and 256 × 7325 × 4096), each passes
           route (timed at 100 × 7001 × 4608, launched on the 4608-wide train
@@ -2897,6 +2915,166 @@ def phase_parallel(torch, smi_line, cfg=PAR):
     return launches
 
 
+BIGSPK_BUDGET_S = 150.0
+BIG_C = 500_000
+# (speakers, flash head) of the bigspk phase's stage-3 runs: the flash head
+# at the flagship's and at a half-million speakers, then the dense head at
+# a half-million (256 x 500,000 f32 logits are 512 MB) beside it
+BIGSPK_RUNS = ((SPK, True), (BIG_C, True), (BIG_C, False))
+
+
+def _reset_launches(fa):
+    for fn in (fa.flash_aam_fwd, fa.flash_aam_bwd):
+        fn.launches = 0
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+
+
+def _read_launches(fa):
+    return {"flash_aam_fwd": fa.flash_aam_fwd.launches,
+            "flash_aam_fwd_routes": dict(fa.flash_aam_fwd.route_launches),
+            "flash_aam_bwd": fa.flash_aam_bwd.launches,
+            "flash_aam_bwd_routes": dict(fa.flash_aam_bwd.route_launches)}
+
+
+def phase_bigspk(torch, smi_line):
+    """Large speaker counts through stage 3 (pkr_tpu_torch.tools.bigspk):
+    run_train on a fresh synthetic feature dir (768 train and 64 cv
+    utterances of 220 x 40, CM-compressed, uniform labels) with the device
+    cache, ResNet-34 at full width, B = 256 x 200, 4 epochs, the last
+    checkpoint kept, at each of BIGSPK_RUNS.  Gates: every logged loss
+    finite, a cv pass each epoch, every flash launch on the tiles routes
+    and the dense run launching neither kernel.  Then both kernels at 256 x
+    500,000 x 256 against their plain versions (check_flash_case,
+    check_flash_bwd_case).  Prints ms/step and examples/s of each run (the
+    last logged window), and the flash kernels' device ms against the flash
+    step; the phase within 150 s.  The runs' prints go to stderr only when
+    it fails."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from pkr_tpu_torch.ops import flash_aam as fa
+    from pkr_tpu_torch.tools import bigspk
+
+    t_phase = time.perf_counter()
+    log = _Stamped()
+    root = tempfile.mkdtemp(prefix="pkr_bigspk_")
+    runs, launches = [], {"flash_aam_fwd": 0, "flash_aam_bwd": 0}
+    try:
+        for n_spk, flash in BIGSPK_RUNS:
+            # --- one stage-3 run, with the kernel counts at 0 just before it ---
+            _reset_launches(fa)
+            with contextlib.redirect_stdout(log):
+                run = bigspk.run_cli_train(n_spk, root, flash_aam=flash)
+            torch.cuda.synchronize()
+            got = _read_launches(fa)
+            # --- end of the run ---
+            records = _jsonl(os.path.join(run.exp_dir, "train_metrics.jsonl"))
+            losses = [r["loss"] for r in records]
+            cv = [r for r in records if "CV" in r["msg"]]
+            rec = {"speakers": n_spk, "head": "flash" if flash else "dense",
+                   "ms_per_step": run.step_ms, "examples_per_s": TRAIN_B * 1e3 / run.step_ms,
+                   "wall_s": run.wall_s, "cv_passes": len(cv),
+                   "cv_acc1": [r["acc1"] for r in cv], "final_loss": losses[-1],
+                   "launches": got}
+            check(len(losses) > 0 and np.isfinite(losses).all(),
+                  f"{n_spk} speakers ({rec['head']}): losses {losses}")
+            check(len(cv) == 4, f"{n_spk} speakers ({rec['head']}): {len(cv)} cv passes")
+            if flash:
+                for k in ("flash_aam_fwd", "flash_aam_bwd"):
+                    check(got[k] > 0 and got[f"{k}_routes"]["tiles"] == got[k],
+                          f"{n_spk} speakers: {k} off the tiles route: {got}")
+                    launches[k] += got[k]
+            else:
+                check(got["flash_aam_fwd"] == 0 and got["flash_aam_bwd"] == 0,
+                      f"the dense run launched a flash kernel: {got}")
+            runs.append(rec)
+            shutil.rmtree(run.exp_dir, ignore_errors=True)
+            torch.cuda.empty_cache()
+    except BaseException:
+        sys.stderr.write("\n".join(line for _, line in log.lines[-200:]) + "\n")
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fwd = check_flash_case(torch, "c500000", TRAIN_B, BIG_C, 256, seed=60)
+    bwd = check_flash_bwd_case(torch, "c500000", TRAIN_B, BIG_C, 256, seed=61)
+    torch.cuda.empty_cache()
+    big = {r["head"]: r for r in runs if r["speakers"] == BIG_C}
+    head_ms = fwd["kernel_ms"] + bwd["kernel_ms"]
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "bigspk", "runs": runs, "launches": launches,
+          "flash_kernels_ms_500000": head_ms,
+          "flash_kernels_share_of_flash_step_500000": head_ms / big["flash"]["ms_per_step"],
+          "flash_over_dense_500000": big["flash"]["ms_per_step"] / big["dense"]["ms_per_step"],
+          "phase_s": phase_s, "card": smi_line})
+    check(phase_s <= BIGSPK_BUDGET_S, f"the bigspk phase took {phase_s:.1f} s "
+                                      f"(budget {BIGSPK_BUDGET_S} s)")
+    return launches, fwd, bwd
+
+
+QUALITY_BUDGET_S = 150.0
+QUALITY_BOOT = 20  # bootstrap resamples here (the tool's default is 500)
+
+
+def phase_quality(torch, smi_line):
+    """Seed 0 of the end-to-end quality study at its full size
+    (pkr_tpu_torch.tools.parity_e2e.run_once: 512 synthetic speakers x 8
+    two-second utterances, stage-1 features on the card, ResNet-34 at f32,
+    320 softmax then 160 AAM steps at B = 64 x 100, 786,432 trials), from
+    the banked rows' initial weights (init torch_default), then from the
+    port's own draw (init port) on the same corpus.  Gates: the study's
+    shape (trials, steps) and TF32 off in the convolutions and matmuls for
+    both; from the banked rows' weights, EER and minDCF(.01) within mean ±
+    4 sd of both engines' 28 banked values in docs/parity_rows.jsonl
+    (computed here); from the port's, below the range's top (a loss of
+    quality raises them; this init trains to a lower EER than the banked
+    one).  Prints each row, each part's wall time and seed 0's gaps to the
+    banked row; the phase within 150 s.  The study's prints go to stderr
+    only when it fails."""
+    import contextlib
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from pkr_tpu_torch.tools import parity_e2e as pe
+
+    t_phase = time.perf_counter()
+    banked = pe.load_banked(os.path.join(ROOT, "docs", "parity_rows.jsonl"))
+    ranges = {k: pe.banked_range(banked, k) for k in ("eer", "dcf1")}
+    log = _Stamped()
+    root = tempfile.mkdtemp(prefix="pkr_quality_")
+    rows = {}
+    try:
+        for init in ("torch_default", "port"):  # the corpus and features serve both
+            cfg = dataclasses.replace(pe.StudyConfig(seed=0), init=init)
+            with contextlib.redirect_stdout(log):
+                rows[init] = pe.run_once(root, cfg, device="cuda", n_boot=QUALITY_BOOT)
+    except BaseException:
+        sys.stderr.write("\n".join(line for _, line in log.lines[-200:]) + "\n")
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "quality",
+          "rows": {init: {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                          for k, v in row.items()} for init, row in rows.items()},
+          "banked_seed0": {k: banked[0][k] for k in ("eer_p", "eer_t", "dcf1_p", "dcf1_t")},
+          "banked_range_4sd": ranges,
+          "gaps": {init: pe.paired_gaps([row], banked) for init, row in rows.items()},
+          "phase_s": phase_s, "card": smi_line})
+    for init, row in rows.items():
+        check(row["n_trials"] == 786432 and row["steps"] == 480,
+              f"{init}: the study's shape: {row['n_trials']} trials, {row['steps']} steps")
+        check(row["precision"] == {"conv_tf32": False, "matmul_tf32": False},
+              f"{init}: the f32 study ran with TF32: {row['precision']}")
+        for k, (lo, hi) in ranges.items():
+            lo = lo if init == "torch_default" else -np.inf
+            check(np.isfinite(row[k]) and lo <= row[k] <= hi,
+                  f"seed 0 ({init} init): {k} {row[k]} outside [{lo}, {hi}]")
+    check(phase_s <= QUALITY_BUDGET_S, f"the quality phase took {phase_s:.1f} s "
+                                       f"(budget {QUALITY_BUDGET_S} s)")
+
+
 # both kernels' deep shapes that PERF.md tracks, timed by --deep-times:
 # below the portable cluster size, past it, the widest cluster, and the
 # depth passes past it
@@ -3031,6 +3209,8 @@ def main():
         phase_augment(torch, smi_line, clean_stage1_per_s)
         zoo_launches = phase_zoo(torch, smi_line)
         parallel_launches = phase_parallel(torch, smi_line)
+        bigspk_launches, big_fwd, big_bwd = phase_bigspk(torch, smi_line)
+        phase_quality(torch, smi_line)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3056,8 +3236,9 @@ def main():
                        "corpus": corpus_launches["flash_aam_fwd"],
                        "recipe": recipe_launches["flash_aam_fwd"],
                        "zoo": zoo_launches["flash_aam_fwd"],
-                       "parallel": parallel_launches["flash_aam_fwd"]},
-                      rows, rows[0], fwd_errs),
+                       "parallel": parallel_launches["flash_aam_fwd"],
+                       "bigspk": bigspk_launches["flash_aam_fwd"]},
+                      rows + [big_fwd], rows[0], fwd_errs, more_rows=[big_fwd]),
         _kernel_entry("flash_aam_bwd", bwd_src, bwd_tpu,
                       {"train": train_launches["flash_aam_bwd"],
                        **{f"train_d{D}": wide_launches[D]["flash_aam_bwd"]
@@ -3065,9 +3246,10 @@ def main():
                        "corpus": corpus_launches["flash_aam_bwd"],
                        "recipe": recipe_launches["flash_aam_bwd"],
                        "zoo": zoo_launches["flash_aam_bwd"],
-                       "parallel": parallel_launches["flash_aam_bwd"]},
-                      bwd_rows, bwd_rows[0], bwd_errs,
-                      deep_row=timed(bwd_rows, "train_b256_d512")),
+                       "parallel": parallel_launches["flash_aam_bwd"],
+                       "bigspk": bigspk_launches["flash_aam_bwd"]},
+                      bwd_rows + [big_bwd], bwd_rows[0], bwd_errs,
+                      deep_row=timed(bwd_rows, "train_b256_d512"), more_rows=[big_bwd]),
         # the forward's cluster route (256 < D <= 4096), timed at 100 x
         # 7001 x 1024 and launched on the 512-, 1024- and 4096-wide train
         # paths; past the portable cluster size at 2304 and 4096

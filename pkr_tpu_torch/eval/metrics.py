@@ -44,10 +44,21 @@ def compute_error_rates(scores: Sequence[float], labels: Sequence[int]
     return fnrs, fprs, thresholds
 
 
-def compute_eer(scores: Sequence[float], labels: Sequence[int]) -> float:
-    fnrs, fprs, _ = compute_error_rates(scores, labels)
+def _eer(fnrs: np.ndarray, fprs: np.ndarray) -> float:
     i = int(np.nanargmin(np.absolute(fnrs - fprs)))
     return float(max(fprs[i], fnrs[i]))
+
+
+def _min_dcf(fnrs: np.ndarray, fprs: np.ndarray, thresholds: np.ndarray,
+             p_target: float, c_miss: float, c_fa: float) -> Tuple[float, float]:
+    c_det = c_miss * fnrs * p_target + c_fa * fprs * (1.0 - p_target)
+    i = int(np.argmin(c_det))  # np.argmin returns the first minimum
+    c_def = min(c_miss * p_target, c_fa * (1.0 - p_target))
+    return float(c_det[i] / c_def), float(thresholds[i])
+
+
+def compute_eer(scores: Sequence[float], labels: Sequence[int]) -> float:
+    return _eer(*compute_error_rates(scores, labels)[:2])
 
 
 def compute_min_dcf(scores: Sequence[float], labels: Sequence[int],
@@ -55,11 +66,15 @@ def compute_min_dcf(scores: Sequence[float], labels: Sequence[int],
                     c_fa: float = 1.0) -> Tuple[float, float]:
     """Returns (min_dcf, threshold_at_min); the first minimum wins, like the
     reference's strict '<' scan."""
+    return _min_dcf(*compute_error_rates(scores, labels), p_target, c_miss, c_fa)
+
+
+def compute_eer_min_dcf(scores: Sequence[float], labels: Sequence[int],
+                        p_target: float = 0.01) -> Tuple[float, float]:
+    """(compute_eer, compute_min_dcf's min_dcf) from one sweep of the error
+    rates: the same values as the two calls, for half the sorting."""
     fnrs, fprs, thresholds = compute_error_rates(scores, labels)
-    c_det = c_miss * fnrs * p_target + c_fa * fprs * (1.0 - p_target)
-    i = int(np.argmin(c_det))  # np.argmin returns the first minimum
-    c_def = min(c_miss * p_target, c_fa * (1.0 - p_target))
-    return float(c_det[i] / c_def), float(thresholds[i])
+    return _eer(fnrs, fprs), _min_dcf(fnrs, fprs, thresholds, p_target, 1.0, 1.0)[0]
 
 
 def scores_and_labels_from_files(score_path: str, trials_path: str

@@ -15,6 +15,7 @@ from pkr_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
     wait_for_checkpoints,
+    warm_start,
 )
 
 __all__ = [
@@ -31,4 +32,5 @@ __all__ = [
     "restore_checkpoint",
     "save_checkpoint",
     "wait_for_checkpoints",
+    "warm_start",
 ]

@@ -412,7 +412,20 @@ def load_pretrained(path: str, model: torch.nn.Module, which: str = "best",
                 return []
     ck = _load(target)
     # a checkpoint that saved no trunk holds a ResNet-family model
-    src = _tree(ck["model"], ck["loss"], ck.get("trunk", "resnet34"))
+    return warm_start(ck["model"], ck["loss"], ck.get("trunk", "resnet34"), model,
+                      verbose=verbose)
+
+
+def warm_start(state_dict: Mapping[str, torch.Tensor], loss: str, trunk: str,
+               model: torch.nn.Module, verbose: bool = True) -> List[str]:
+    """Copy a ``loss``/``trunk`` model's state dict into ``model`` in place
+    by ``pkr_tpu`` variable path (``_reference_key``), the rule of
+    ``pkr_tpu``'s name-and-shape warm start: a variable whose path exists in
+    ``model`` with a matching shape is copied; everything else is skipped
+    with a message, a missing subtree once.  So a softmax classifier
+    (``last/kernel``) never lands in an AAM weight (``aam_weight``), though
+    both are ``last.weight`` of one shape here.  Returns the names loaded."""
+    src = _tree(state_dict, loss, trunk)
     dst = _tree(model.state_dict(), model.loss, model.trunk)
     loaded: List[str] = []
     n_skipped = 0
