@@ -40,8 +40,9 @@ Phases, one JSON line each:
           the backward also with every target p ≈ 0.993 against the plain
           version in f64 at D = 256, 512 and 1024, at D = 37, with labels
           off the shard at D = 256, 300 and 1024, and twice for the same
-          bits at D = 256 and every deep D), with its time, the plain
-          version's time, a dense library yardstick's time and two roofline
+          bits at D = 256 and every deep D), with its time (from a
+          trace that shows every launch of its route, device_ms' `expect`:
+          three short traces fail the check), the plain version's time, a dense library yardstick's time and two roofline
           bounds (f32 CUDA cores; 3×TF32 tensor cores); then the two kernels
           against each other: with one class the backward's gradients are
           exactly 0 iff both formed the same cosine bits
@@ -67,6 +68,14 @@ Phases, one JSON line each:
           conv-MFU;
   train_profile  the device and wall time of one train step per head and
           its longest kernels;
+  roofline the train step's roofline (pkr_tpu_torch.tools.train_roofline)
+          on the train phase's model: each conv pass's floor (bf16 FLOPs at
+          989 TFLOP/s or its least bytes at 3.35 TB/s), the least bytes of
+          BatchNorm, the elementwise ops, the update and the head, beside
+          the dense step's device ms by bucket (convolution, BatchNorm,
+          layout transposes, other elementwise, optimizer, head); gates:
+          each bucket at least its floor, the buckets within 5 % of a
+          second trace's step time, the FLOPs bench.py's; within 60 s;
   corpus  training and extraction from a Kaldi data dir at the train
           phase's width: a synthetic CM-compressed feats.ark/scp of 7325
           speakers × 2 utterances (utt2spk, spk2utt, utt2spkid, a cv split);
@@ -177,6 +186,20 @@ Phases, one JSON line each:
           sd of docs/parity_rows.jsonl's 28 values (from the port's weights:
           below the top); each part's wall time and the gaps to seed 0's
           banked row; the phase within 150 s;
+  rehearsal the corpus rehearsal (pkr_tpu_torch.tools.corpus_rehearsal)
+          cut to 512 speakers x 8 utterances, x2 augmented (8,192 rows), 64
+          test speakers x 4 (32,640 trials), 10 epochs, a 2,048-row cohort
+          subset: the JAX tool's corpus, MUSAN and RIR trees as wavs, then
+          recipes.run.main stage by stage, 0-6, on the card (8 MB pool
+          shards rotating every 2,000 rows, the device cache, S-norm), then
+          a flash stage 3 over the same features; gates: every stage
+          returns 0, stage 0 validates both dirs, features for every row, a
+          rotation and no error, finite losses, no flash launch in the
+          dense run and both kernels on the tiles routes in the flash run,
+          train.iv 2,048 rows and test.iv 256, one finite score per trial,
+          EER in [0, 0.5), minDCF in [0, 1], every device stage's peak
+          memory > 0; each stage's seconds and peak, the rates, the cache,
+          both runs' ms/step; the phase within 150 s;
   kernels every kernel with its launches on the paths and its errors (the
           backward's also with a `deep` record of its times at 256 × 7325 ×
           512; both with a `shapes` record at 256 × 500,000 × 256), then
@@ -259,35 +282,46 @@ def call_ms(torch, fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters, only=None):
+def device_ms(torch, fn, iters, only=None, expect=None):
     """Device time of one call, traced by torch.profiler over `iters` calls:
     (summed durations of its device activities (kernels, copies) in ms,
     activities per call, the six longest by name as [name, ms per call]).
     `only` keeps activities whose name contains one of the given strings.
-    The time is None when the trace holds none."""
+    `expect` is the activities a call must show: a trace with fewer is
+    traced again, and after three short traces the check fails.  Without
+    it the time is None when three traces hold none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a trace now and then comes back without the device activities of
-    # launches that other traces of the same call show: trace again, up to
-    # three times, before reporting none
+    # a trace now and then comes back without one of the device activities
+    # of launches that other traces of the same call show: the calls go
+    # between two marker kernels (spin kernels, counted nowhere), so that
+    # neither end of the trace is a call's, and a short trace is traced
+    # again, up to three times
+    want = 1 if expect is None else expect * iters
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for _ in range(iters):
                 fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, counts = {}, {}
         n = 0
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA and (only is None or
-                                                     any(o in e.name for o in only)):
+            if (e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name
+                    and (only is None or any(o in e.name for o in only))):
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3 / iters)
+                counts[e.name[:60]] = counts.get(e.name[:60], 0) + 1
                 n += 1
-        if n:
+        if n >= want:
             break
+    if expect is not None:
+        check(n >= want, f"three traces of {iters} calls showed {n} device activities, "
+                         f"fewer than the {want} the calls launch (the last: {counts})")
     if not n:
         return None, 0, []
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -457,6 +491,13 @@ def _rank_gaps(torch, emb, w, labels, rows, k):
 # every kernel of the forward's library (the passes route's norms kernel
 # included), and the chunked route of an older checkout's, which
 # --deep-times times
+def route_kernels(fa, kernel, D):
+    """The kernels one call of a flash kernel's wrapper launches at depth D:
+    its route's kernel and the merge (forward) or the dê sum (backward), and
+    on a passes route the norms kernel before them."""
+    return 3 if fa._route(kernel, D) == "passes" else 2
+
+
 FWD_KERNELS = ("fwd_tiles_kernel", "fwd_cluster_kernel", "fwd_passes_kernel", "fwd_norms_kernel",
                "fwd_chunks_kernel", "merge_kernel")
 
@@ -515,8 +556,9 @@ def check_flash_case(torch, name, B, C, D, seed, saturated=False, timed=True, re
                      ("plain", lambda: fa.flash_aam_fwd_plain(e_hat, w, labels, zt), None),
                      ("library", dense, None))
         for tag, fn, only in timed_fns:
+            expect = route_kernels(fa, fa._KERNEL, D) if tag == "kernel" else None
             row[f"{tag}_ms"], row[f"{tag}_device_kernels_per_call"], top = device_ms(
-                torch, fn, profiled_calls(tag, iters), only)
+                torch, fn, profiled_calls(tag, iters), only, expect)
             row[f"{tag}_call_ms"] = call_ms(torch, fn, iters)
             if tag == "kernel":  # the tile kernel and the merge, ms each per call
                 row["kernel_ms_by_launch"] = top
@@ -646,8 +688,9 @@ def check_flash_bwd_case(torch, name, B, C, D, seed, saturated=False, timed=True
                 ("kernel", lambda: fa.flash_aam_bwd(e_hat, w, labels, lse, g), BWD_KERNELS),
                 ("plain", lambda: fa.flash_aam_bwd_plain(e_hat, w, labels, lse, g), None),
                 ("library", dense_bwd, None)):
+            expect = route_kernels(fa, fa._BWD_KERNEL, D) if tag == "kernel" else None
             row[f"{tag}_ms"], row[f"{tag}_device_kernels_per_call"], top = device_ms(
-                torch, fn, profiled_calls(tag, iters), only)
+                torch, fn, profiled_calls(tag, iters), only, expect)
             row[f"{tag}_call_ms"] = call_ms(torch, fn, iters)
             if tag == "kernel":  # each of the route's kernels, ms per call
                 row["kernel_ms_by_launch"] = top
@@ -981,8 +1024,9 @@ def check_wide_train(torch, smi_line, D):
     st = create_train_state(model)
     flash = speed["flash"]
     flash["device_ms"] = device_ms(torch, lambda: steps["flash"](st, x, y, lr), 2)[0]
-    flash["flash_kernels_ms"] = device_ms(torch, lambda: steps["flash"](st, x, y, lr), 2,
-                                          only=BWD_KERNELS + FWD_KERNELS)[0]
+    flash["flash_kernels_ms"] = device_ms(
+        torch, lambda: steps["flash"](st, x, y, lr), 2, only=BWD_KERNELS + FWD_KERNELS,
+        expect=route_kernels(fa, fa._KERNEL, D) + route_kernels(fa, fa._BWD_KERNEL, D))[0]
     check(flash["device_ms"] is not None and flash["flash_kernels_ms"] is not None,
           f"the {D}-wide flash step's trace shows no device time")
     flash["flash_kernels_share"] = flash["flash_kernels_ms"] / flash["device_ms"]
@@ -1260,12 +1304,13 @@ def phase_train(torch, smi_line):
         dev_ms, n_act, top = device_ms(torch, lambda: step(st, x, y, lr), 2)
         wall = call_ms(torch, lambda: step(st, x, y, lr), 3, warmup=1)
         head = device_ms(torch, lambda: step(st, x, y, lr), 2,
-                         only=BWD_KERNELS + FWD_KERNELS)[0]
+                         only=BWD_KERNELS + FWD_KERNELS,
+                         expect=4 if step is flash_step else None)[0]
         stages[tag] = {"device_ms": dev_ms, "wall_ms": wall, "activities": n_act,
                        "busy": None if dev_ms is None else dev_ms / wall,
                        "flash_kernels_ms": head, "top": top}
     emit({"phase": "train_profile", "batch": TRAIN_B, "stages": stages, "card": smi_line})
-    return launches
+    return launches, model
 
 
 CORPUS_UTTS_PER_SPK = 2
@@ -3075,6 +3120,129 @@ def phase_quality(torch, smi_line):
                                        f"(budget {QUALITY_BUDGET_S} s)")
 
 
+REHEARSAL_BUDGET_S = 150.0
+# the corpus rehearsal (pkr_tpu_torch.tools.corpus_rehearsal) cut to the
+# script's time: 512 speakers x 8 utterances (8,192 rows with the augmented
+# copies), 64 test speakers x 4 (32,640 trials), a cohort subset of 2,048
+# rows (below the train rows, so that the knob bites), and 10 epochs of 31
+# steps: a model trained from scratch scores these pitch-varied speakers
+# at chance (EER 0.51) after one epoch, 0.49 after 6, 0.32 after 10
+REHEARSAL = {"spk": 512, "utt": 8, "test_spk": 64, "test_utt": 4, "epochs": 10,
+             "cohort_subset": 2048, "print_freq": RECIPE_PRINT_FREQ}
+
+
+def phase_rehearsal(torch, smi_line):
+    """The corpus rehearsal at REHEARSAL's size through its own function
+    (corpus_rehearsal.rehearse, as its main calls it): the JAX tool's
+    corpus, MUSAN and RIR trees written as wavs, then recipes.run.main
+    stage by stage, 0 to 6, on the card with the tool's config (AAM, B =
+    256, the device cache, S-norm, 8 MB pool shards rotating every 2,000
+    rows), then stage 3 again with the flash head over the same features.
+    Gates: every stage returns 0; stage 0 validates both data dirs; stage 1
+    writes features for every row, and its rotation record shows a rotation
+    and no error; both stage-3 runs log finite losses; the dense run
+    launches neither flash kernel, the flash run both, every launch on the
+    tiles routes; train.iv holds the cohort subset's rows and test.iv every
+    test utterance; stage 6 gives one finite score per trial, EER in [0,
+    0.5) and minDCF in [0, 1]; every device stage's peak memory > 0; the
+    phase within 150 s.  Prints each stage's seconds and peak memory, stage
+    1's and extraction's utterances/s, the cache's size and the seconds to
+    it, and both stage-3 runs' ms/step.  The recipe's prints go to stderr
+    only when it fails."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from pkr_tpu_torch.tools import corpus_rehearsal as cr
+
+    t_phase = time.perf_counter()
+    log = _Stamped()
+    root = tempfile.mkdtemp(prefix="pkr_rehearsal_")
+    cfg = REHEARSAL
+    n_rows = 2 * cfg["spk"] * cfg["utt"]
+    n_test = cfg["test_spk"] * cfg["test_utt"]
+    try:
+        with contextlib.redirect_stdout(log):
+            summary = cr.rehearse(root, **cfg)
+        exp = os.path.join(root, "exp")
+        lines = [line for _, line in log.lines]
+        checked = [line for line in lines if line.startswith("== stage 0:")]
+        check(len(checked) == 2 and all(line.endswith("  OK") for line in checked),
+              f"stage 0: {checked}")
+        n_feats = (sum(1 for _ in open(os.path.join(exp, "feats", "feats.scp"))),
+                   sum(1 for _ in open(os.path.join(exp, "feats_test", "feats.scp"))))
+        check(n_feats == (n_rows, n_test), f"stage 1 wrote {n_feats} of {(n_rows, n_test)}")
+        rot = json.loads(summary["rotation"].splitlines()[-1])
+        check(rot["pool_rotations_done"] >= 1 and rot["pool_rotation_errors"] == 0,
+              f"the rotation record: {rot}")
+        for key, d in (("stage3", exp), ("stage3_flash", os.path.join(root, "exp_flash"))):
+            losses = [r["loss"] for r in _jsonl(os.path.join(d, "train_metrics.jsonl"))]
+            check(len(losses) > 0 and np.isfinite(losses).all(), f"{key}: losses {losses}")
+        got = summary["route_launches"]
+        check(got["stage3"] == {"flash_aam_fwd": {}, "flash_aam_bwd": {}},
+              f"the dense stage 3 launched a flash kernel: {got['stage3']}")
+        for k in ("flash_aam_fwd", "flash_aam_bwd"):
+            routes = got["stage3_flash"][k]
+            check(set(routes) == {"tiles"} and routes["tiles"] > 0,
+                  f"the flash stage 3's {k} launches: {routes}")
+        iv = {name: sum(1 for _ in open(os.path.join(exp, name)))
+              for name in ("train.iv", "test.iv")}
+        check(iv == {"train.iv": cfg["cohort_subset"], "test.iv": n_test}, f"rows {iv}")
+        n_trials = n_test * (n_test - 1) // 2
+        res = _check_scores(exp, n_trials, "snorm")
+        check(res["eer"] < 0.5, f"EER {res['eer']}")
+        peaks = summary["peak_hbm_gb"]
+        check(all(peaks[k] is not None and peaks[k] > 0 for k in cr.DEVICE_STAGES),
+              f"device stages' peak memory {peaks}")
+    except BaseException:
+        sys.stderr.write("\n".join(line for _, line in log.lines[-200:]) + "\n")
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "rehearsal", "config": cfg, "rows": summary["rows"],
+          "times_s": summary["times_s"], "peak_hbm_gb": peaks, "rotation": rot,
+          "stage1_utts_per_s": summary["stage1_utts_per_s"],
+          "extract_utts_per_s": summary["extract_utts_per_s"], "cache": summary["cache"],
+          "train": summary["train"], "route_launches": got, "results": res,
+          "phase_s": phase_s, "card": smi_line})
+    check(phase_s <= REHEARSAL_BUDGET_S, f"the rehearsal phase took {phase_s:.1f} s "
+                                         f"(budget {REHEARSAL_BUDGET_S} s)")
+    return {k: sum(sum(by_route[k].values()) for by_route in got.values())
+            for k in ("flash_aam_fwd", "flash_aam_bwd")}
+
+
+ROOFLINE_BUDGET_S = 60.0
+
+
+def phase_roofline(torch, smi_line, model):
+    """The train step's roofline (pkr_tpu_torch.tools.train_roofline) on the
+    train phase's model: each conv pass's floor (bf16 FLOPs or its least
+    bytes), the least bytes of BatchNorm, the elementwise ops, the update
+    and the head, against the dense step's device time by bucket.  Gates:
+    every bucket's measured ms at least its floor (a floor above a
+    measurement means a count is wrong); the buckets sum to the step's
+    device ms of a second trace within 5 %; the FLOPs equal
+    resnet34_train_flops(256, 40, 200); the phase within 60 s."""
+    from pkr_tpu_torch.tools import train_roofline as tr
+
+    t_phase = time.perf_counter()
+    out = tr.roofline(model=model, iters=10, repeats=3)
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "roofline", **out, "phase_s": phase_s, "card": smi_line})
+    for b in tr.BUCKETS:
+        check(out["measured_ms"][b] >= out["floor_ms"][b],
+              f"{b}: measured {out['measured_ms'][b]} ms under its floor {out['floor_ms'][b]}")
+    total = sum(out["measured_ms"].values())
+    check(abs(total - out["step_device_ms"]) <= 0.05 * out["step_device_ms"],
+          f"the buckets sum to {total} ms, the step's device time is {out['step_device_ms']}")
+    check(out["train_flops"] == resnet34_train_flops(TRAIN_B, 40, TRAIN_T),
+          f"FLOPs {out['train_flops']} against {resnet34_train_flops(TRAIN_B, 40, TRAIN_T)}")
+    check(phase_s <= ROOFLINE_BUDGET_S, f"the roofline phase took {phase_s:.1f} s "
+                                        f"(budget {ROOFLINE_BUDGET_S} s)")
+
+
 # both kernels' deep shapes that PERF.md tracks, timed by --deep-times:
 # below the portable cluster size, past it, the widest cluster, and the
 # depth passes past it
@@ -3203,7 +3371,9 @@ def main():
         phase_build()
         rows, bwd_rows, wide_launches, _ = phase_kernel(torch, smi_line)
         launches = phase_slice(torch, smi_line)
-        train_launches = phase_train(torch, smi_line)
+        train_launches, train_model = phase_train(torch, smi_line)
+        phase_roofline(torch, smi_line, train_model)
+        del train_model
         corpus_launches = phase_corpus(torch, smi_line)
         recipe_launches, clean_stage1_per_s = phase_recipe(torch, smi_line)
         phase_augment(torch, smi_line, clean_stage1_per_s)
@@ -3211,6 +3381,7 @@ def main():
         parallel_launches = phase_parallel(torch, smi_line)
         bigspk_launches, big_fwd, big_bwd = phase_bigspk(torch, smi_line)
         phase_quality(torch, smi_line)
+        rehearsal_launches = phase_rehearsal(torch, smi_line)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3237,7 +3408,8 @@ def main():
                        "recipe": recipe_launches["flash_aam_fwd"],
                        "zoo": zoo_launches["flash_aam_fwd"],
                        "parallel": parallel_launches["flash_aam_fwd"],
-                       "bigspk": bigspk_launches["flash_aam_fwd"]},
+                       "bigspk": bigspk_launches["flash_aam_fwd"],
+                       "rehearsal": rehearsal_launches["flash_aam_fwd"]},
                       rows + [big_fwd], rows[0], fwd_errs, more_rows=[big_fwd]),
         _kernel_entry("flash_aam_bwd", bwd_src, bwd_tpu,
                       {"train": train_launches["flash_aam_bwd"],
@@ -3247,7 +3419,8 @@ def main():
                        "recipe": recipe_launches["flash_aam_bwd"],
                        "zoo": zoo_launches["flash_aam_bwd"],
                        "parallel": parallel_launches["flash_aam_bwd"],
-                       "bigspk": bigspk_launches["flash_aam_bwd"]},
+                       "bigspk": bigspk_launches["flash_aam_bwd"],
+                       "rehearsal": rehearsal_launches["flash_aam_bwd"]},
                       bwd_rows + [big_bwd], bwd_rows[0], bwd_errs,
                       deep_row=timed(bwd_rows, "train_b256_d512"), more_rows=[big_bwd]),
         # the forward's cluster route (256 < D <= 4096), timed at 100 x

@@ -70,13 +70,18 @@ class CliRun(NamedTuple):
 
 
 class _Tee(io.TextIOBase):
-    """Writes to ``out`` and keeps a copy."""
+    """Writes to ``out`` and keeps a copy, and each whole line with the host
+    time it was written at (``lines``, (time.perf_counter(), line))."""
 
     def __init__(self, out):
-        self.out, self.buf = out, io.StringIO()
+        self.out, self.buf, self.lines, self._part = out, io.StringIO(), [], ""
 
     def write(self, s):
         self.buf.write(s)
+        self._part += s
+        while "\n" in self._part:
+            line, self._part = self._part.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
         return self.out.write(s)
 
     def flush(self):

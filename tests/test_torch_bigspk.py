@@ -6,8 +6,9 @@ tools/bigspk_demo.py, on the CPU at a tiny size.
 - run_cli_train: stage 3 on tiny_resnet with the device cache on the CPU
   gives a parsed ms/step, and a run that logs no window raises;
 - cpu_mesh_demo: run_train with model_parallel = 2 over two gloo ranks;
-- the tools import neither jax nor pkr_tpu, and their entry points raise
-  without a card.
+- the tools import neither jax nor pkr_tpu, and their entry points (and
+  those of the corpus rehearsal, the recipe demo, the stage-1 bench and
+  the train-step roofline) raise without a card, having written nothing.
 """
 
 import importlib.util
@@ -21,7 +22,8 @@ import torch
 
 from pkr_tpu.io.kaldi_ark import read_mat_scp as jax_read_mat_scp
 from pkr_tpu_torch.io import read_mat_scp
-from pkr_tpu_torch.tools import bigspk, parity_e2e
+from pkr_tpu_torch.tools import (bench_stage1, bigspk, corpus_rehearsal, parity_e2e,
+                                 recipe_demo, train_roofline)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -79,23 +81,36 @@ def test_tools_import_neither_jax_nor_pkr_tpu():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|pkr_tpu)(\.|\s|$)")
     tools = os.path.join(REPO, "pkr_tpu_torch", "tools")
     names = sorted(f for f in os.listdir(tools) if f.endswith(".py"))
-    assert names == ["__init__.py", "bigspk.py", "parity_e2e.py"]
+    assert names == ["__init__.py", "bench_stage1.py", "bigspk.py", "corpus_rehearsal.py",
+                     "parity_e2e.py", "recipe_demo.py", "train_roofline.py"]
     for name in names:
         for i, line in enumerate(open(os.path.join(tools, name)), 1):
             assert not pat.match(line), f"{name}:{i}: {line.strip()}"
 
 
-@pytest.mark.parametrize("call", ["run_cli_train", "bigspk_main", "run_once",
-                                  "parity_main"])
+ENTRY_POINTS = {
+    "run_cli_train": lambda tmp: bigspk.run_cli_train(8, tmp, trunk="tiny_resnet"),
+    "bigspk_main": lambda tmp: bigspk.main(["--speakers", "8", "--skip-mesh"]),
+    "run_once": lambda tmp: parity_e2e.run_once(tmp, parity_e2e.StudyConfig(n_spk=2)),
+    "parity_main": lambda tmp: parity_e2e.main(["--root", tmp, "--spk", "2"]),
+    "rehearse": lambda tmp: corpus_rehearsal.rehearse(os.path.join(tmp, "r"), spk=2, utt=2,
+                                                      trunk="tiny_resnet"),
+    "rehearsal_main": lambda tmp: corpus_rehearsal.main(["--out", os.path.join(tmp, "r"),
+                                                         "--spk", "2", "--synth-only"]),
+    "run_demo": lambda tmp: recipe_demo.run_demo(os.path.join(tmp, "d"), train_spk=2,
+                                                 trunk="tiny_resnet"),
+    "demo_main": lambda tmp: recipe_demo.main(["--root", os.path.join(tmp, "d"),
+                                               "--train-spk", "2"]),
+    "run_bench": lambda tmp: bench_stage1.run_bench(tmp, utts=2),
+    "bench_main": lambda tmp: bench_stage1.main(["--out", tmp, "--utts", "2"]),
+    "roofline_measure": lambda tmp: train_roofline.measure(),
+    "roofline_main": lambda tmp: train_roofline.main([]),
+}
+
+
+@pytest.mark.parametrize("call", sorted(ENTRY_POINTS))
 def test_tool_entry_points_raise_without_a_card(call, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if call == "run_cli_train":
-            bigspk.run_cli_train(8, str(tmp_path), trunk="tiny_resnet")
-        elif call == "bigspk_main":
-            bigspk.main(["--speakers", "8", "--skip-mesh"])
-        elif call == "run_once":
-            parity_e2e.run_once(str(tmp_path), parity_e2e.StudyConfig(n_spk=2))
-        else:
-            parity_e2e.main(["--root", str(tmp_path), "--spk", "2"])
+        ENTRY_POINTS[call](str(tmp_path))
     assert not os.listdir(tmp_path)  # nothing was written first
