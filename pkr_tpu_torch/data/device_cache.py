@@ -26,7 +26,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from pkr_tpu_torch.device import DeviceLike, resolve_device
+from pkr_tpu_torch.device import DeviceLike, as_device_tensor, resolve_device
+from pkr_tpu_torch.utils import trace
 
 # zero rows after the last utterance, as in the reference's buffer layout
 # (there they keep its dynamic_slice from clamping; the gather here never
@@ -157,7 +158,7 @@ class DeviceFeatureCache:
         if seq_len > _CROP_PAD:
             raise ValueError(f"seq_len {seq_len} > {_CROP_PAD}")
         dev = self.codes.device
-        utt_ids = torch.as_tensor(np.asarray(utt_ids), dtype=torch.int64).to(dev)
+        utt_ids = as_device_tensor(np.asarray(utt_ids), dev, torch.int64)
         feats = _sample_cache(self.codes, self.pct, self.offsets, self.rows, utt_ids,
                               u.to(device=dev, dtype=torch.float32), seq_len)
         labels = None if self.labels is None else self.labels[utt_ids]
@@ -198,9 +199,11 @@ class DeviceCacheLoader:
         gen = torch.Generator(device=dev).manual_seed((self.seed << 16) ^ epoch)
         n = len(idx) // self.batch_size
         for b in range(n):
-            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            u = torch.rand((len(sel),), generator=gen, device=dev)
-            yield self.cache.sample_batch(sel, u, self.chunk)
+            with trace.span("loader.batch"):
+                sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                u = torch.rand((len(sel),), generator=gen, device=dev)
+                batch = self.cache.sample_batch(sel, u, self.chunk)
+            yield batch
 
 
 class ShardedDeviceFeatureCache:
@@ -317,6 +320,8 @@ class ShardedCacheLoader:
         seed = (((self.seed * 0x9E3779B1 + epoch) & 0xFFFFFFFF) << 16) | d
         gen = torch.Generator(device=dev).manual_seed(seed)
         for ids in self.step_ids(epoch):
-            sel = ids[d * self.b_local:(d + 1) * self.b_local]
-            u = torch.rand((len(sel),), generator=gen, device=dev)
-            yield self.cache.sample_batch(sel, u, self.chunk)
+            with trace.span("loader.batch"):
+                sel = ids[d * self.b_local:(d + 1) * self.b_local]
+                u = torch.rand((len(sel),), generator=gen, device=dev)
+                batch = self.cache.sample_batch(sel, u, self.chunk)
+            yield batch

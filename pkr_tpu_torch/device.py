@@ -1,4 +1,5 @@
-"""Device selection and the strict-f32 switch shared by the port."""
+"""Device selection, the strict-f32 switch and the host-to-device copy
+shared by the port."""
 
 from __future__ import annotations
 
@@ -6,6 +7,8 @@ import contextlib
 from typing import Iterator, Optional, Union
 
 import torch
+
+from pkr_tpu_torch.utils import trace
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -40,5 +43,28 @@ def full_f32() -> Iterator[None]:
 
 def as_device_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None
                      ) -> torch.Tensor:
-    """numpy array or tensor → tensor on ``device`` (no copy when it is there)."""
-    return torch.as_tensor(x, dtype=dtype).to(device=device, dtype=dtype)
+    """numpy array or tensor → tensor on ``device`` (no copy when it is there).
+
+    The port's host-to-device copies go through here.  While the tracer is
+    on (``utils/trace.py``) a copy from the host to a card is counted
+    (:func:`count_h2d`) and timed on the host as the span ``h2d``: a copy
+    from pageable memory waits for the stream to drain, so the span holds
+    the host's wait for the card as well as the staging of the bytes."""
+    t = torch.as_tensor(x, dtype=dtype)
+    if not trace.enabled() or not count_h2d(t, device):
+        return t.to(device=device, dtype=dtype)
+    with trace.span("h2d"):
+        return t.to(device=device, dtype=dtype)
+
+
+def count_h2d(t: torch.Tensor, device: DeviceLike) -> int:
+    """The bytes ``t.to(device)`` sends from the host to a card (0 where it
+    is no such copy), added to the counter ``h2d.bytes`` and, where ``t`` is
+    not in pinned memory, to ``h2d.pageable_bytes``."""
+    if t.device.type != "cpu" or torch.device(device).type != "cuda":
+        return 0
+    n = t.numel() * t.element_size()
+    trace.count("h2d.bytes", n)
+    if not t.is_pinned():
+        trace.count("h2d.pageable_bytes", n)
+    return n

@@ -22,6 +22,7 @@ import torch
 
 from pkr_tpu_torch.data.device_cache import dequantize
 from pkr_tpu_torch.device import DeviceLike, as_device_tensor, resolve_device
+from pkr_tpu_torch.utils import trace
 
 SEG_SEP = "##"
 
@@ -44,6 +45,7 @@ def make_embed_fn(model, device: DeviceLike = None
     model.to(dev)
     xfer = model.dtype
 
+    @trace.spanned("extract.embed")
     @torch.no_grad()
     def embed(feats, mask, pct=None):
         model.eval()

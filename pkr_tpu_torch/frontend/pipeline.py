@@ -23,6 +23,7 @@ from pkr_tpu_torch.frontend.features import (
     frame_signal,
 )
 from pkr_tpu_torch.frontend.vad import VadConfig, energy_vad
+from pkr_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -34,6 +35,7 @@ class FrontendConfig:
     cmn_norm_vars: bool = False
 
 
+@trace.spanned("frontend")
 def wav_to_train_feats(wav, length, generator: Optional[torch.Generator] = None,
                        cfg: FrontendConfig = FrontendConfig(),
                        max_frames: Optional[int] = None,

@@ -46,6 +46,7 @@ import torch.distributed as dist
 from pkr_tpu_torch.device import full_f32
 from pkr_tpu_torch.ops import _native
 from pkr_tpu_torch.ops.aam import _normalize, _phi, aam_logits
+from pkr_tpu_torch.utils import trace
 
 DEFAULT_TILE = 2048
 _NEG_INF = -1e30
@@ -502,6 +503,7 @@ class _FlashAAMLoss(torch.autograd.Function):
     two metrics are marked non-differentiable: they are not loss terms."""
 
     @staticmethod
+    @trace.spanned("flash.fwd")
     def forward(ctx, emb, weight, labels, m, s, tile):
         e_hat, e_norm = _normalize(emb.to(torch.float32))
         w = weight.to(torch.float32)
@@ -516,6 +518,7 @@ class _FlashAAMLoss(torch.autograd.Function):
         return torch.mean(lse - zy), acc, acc5
 
     @staticmethod
+    @trace.spanned("flash.bwd")
     def backward(ctx, gloss, _gacc, _gacc5):
         e_hat, e_norm, w, labels, lse = ctx.saved_tensors
         m, s, tile, emb_dtype, w_dtype = ctx.consts
@@ -579,6 +582,7 @@ class _FlashAAMSharded(torch.autograd.Function):
     over ``model`` (class-sharded) and dW over ``data``."""
 
     @staticmethod
+    @trace.spanned("flash.fwd")
     def forward(ctx, emb, weight, labels, mesh, c_local, sharded, m, s, tile):
         e_hat, e_norm = _normalize(emb.to(torch.float32))
         w = weight.to(torch.float32)
@@ -612,6 +616,7 @@ class _FlashAAMSharded(torch.autograd.Function):
         return loss, acc, acc5
 
     @staticmethod
+    @trace.spanned("flash.bwd")
     def backward(ctx, gloss, _gacc, _gacc5):
         e_hat, e_norm, w, y, lse = ctx.saved_tensors
         mesh, sharded, m, s, tile, emb_dtype, w_dtype = ctx.consts

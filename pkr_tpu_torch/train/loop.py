@@ -42,7 +42,8 @@ from pkr_tpu_torch.models.resnet import commit_batch_stats, set_batch_norm_group
 from pkr_tpu_torch.ops.flash_aam import flash_aam_loss_acc, make_flash_aam_sharded
 from pkr_tpu_torch.parallel.mesh import weight_is_sharded
 from pkr_tpu_torch.train.state import TrainState, cosine_epoch_lr, sgd_step
-from pkr_tpu_torch.utils.logging import AverageMeter, ProgressLogger, profile_trace
+from pkr_tpu_torch.utils import trace
+from pkr_tpu_torch.utils.logging import AverageMeter, ProgressLogger
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -112,7 +113,11 @@ def make_train_step(model, momentum: float = 0.9, weight_decay: float = 5e-4,
     share of the global batch, and the step is the global batch's (see the
     module's docstring); its metrics are global.  The model's BatchNorms
     take the mesh's data group.  A class-sharded AAM weight
-    (``parallel.shard_params``) needs the flash head."""
+    (``parallel.shard_params``) needs the flash head.
+
+    While the tracer is on (``utils/trace.py``) a step is the spans
+    ``step.forward``, ``step.backward`` and ``step.update``, the last with
+    ``step.bn_commit`` inside."""
     _check_flash(model, flash_aam)
     dev = resolve_device(device)
     model.to(dev)
@@ -128,28 +133,30 @@ def make_train_step(model, momentum: float = 0.9, weight_decay: float = 5e-4,
 
     def train_step(state: TrainState, feats, labels, lr: float
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model.train()
-        feats = as_device_tensor(feats, dev, torch.float32)
-        labels = as_device_tensor(labels, dev, torch.int64)
-        if flash_aam:  # over a mesh: the global means
-            emb = model.head_input(feats)
-            loss, acc1, acc5 = flash_fn(emb, model.last.weight, labels)
-            objective = loss
-        else:
-            logits = model(feats, labels)
-            objective = cross_entropy(logits, labels) / n_data  # its share of the mean
-            with torch.no_grad():
-                metrics = torch.stack([objective, topk_correct(logits, labels, 1),
-                                       topk_correct(logits, labels, 5)])
-                metrics[1:] /= labels.shape[0] * n_data
-                loss, acc1, acc5 = _data_sum(metrics, mesh).unbind()
-        with full_f32():  # the backward's f32 convolutions and matmuls too
+        with trace.span("step.forward"):
+            model.train()
+            feats = as_device_tensor(feats, dev, torch.float32)
+            labels = as_device_tensor(labels, dev, torch.int64)
+            if flash_aam:  # over a mesh: the global means
+                emb = model.head_input(feats)
+                loss, acc1, acc5 = flash_fn(emb, model.last.weight, labels)
+                objective = loss
+            else:
+                logits = model(feats, labels)
+                objective = cross_entropy(logits, labels) / n_data  # its share of the mean
+                with torch.no_grad():
+                    metrics = torch.stack([objective, topk_correct(logits, labels, 1),
+                                           topk_correct(logits, labels, 5)])
+                    metrics[1:] /= labels.shape[0] * n_data
+                    loss, acc1, acc5 = _data_sum(metrics, mesh).unbind()
+        with trace.span("step.backward"), full_f32():  # f32 convs and matmuls too
             grads = list(torch.autograd.grad(objective, params))
-        with torch.no_grad():
+        with trace.span("step.update"), torch.no_grad():
             for i, g in zip(reduced, _reduce_grads([grads[i] for i in reduced], mesh)):
                 grads[i] = g
             ok = torch.isfinite(loss)
-            commit_batch_stats(model, ok)
+            with trace.span("step.bn_commit"):
+                commit_batch_stats(model, ok)
             sgd_step(params, grads, [state.momentum[n] for n in names], lr, ok,
                      momentum, weight_decay)
             state.step += 1
@@ -240,7 +247,7 @@ def train_and_validate(model, state: TrainState, train_loader, cv_loader,
         t0 = time.time()
         for i, (feats, labels) in enumerate(train_loader.epoch(epoch)):
             if profile_dir and epoch == start_epoch and i == prof_window[0]:
-                prof.enter_context(profile_trace(profile_dir))
+                prof.enter_context(trace.profile_trace(profile_dir))
             state, metrics = train_step(state, feats, labels, lr)
             host_step += 1
             if profile_dir and epoch == start_epoch and i + 1 == prof_window[1]:

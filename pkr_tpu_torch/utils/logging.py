@@ -1,19 +1,19 @@
-"""Training meters, structured progress logging and a profiler window.
+"""Training meters and structured progress logging.
 
 The port's own copy of ``AverageMeter`` and ``ProgressLogger`` from
 ``pkr_tpu/utils/logging.py`` (plain-text lines plus an optional JSONL
-metrics stream), and ``profile_trace`` on ``torch.profiler``: it records the
-host and, where there is a card, the device, and writes a Chrome trace.
+metrics stream).  ``profile_trace``, the profiler window, lives with the
+port's spans in ``utils/trace.py`` and is importable from here too.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
-import os
 import sys
 import time
 from typing import Optional, TextIO
+
+from pkr_tpu_torch.utils.trace import profile_trace  # noqa: F401
 
 
 class AverageMeter:
@@ -61,23 +61,3 @@ class ProgressLogger:
     def close(self):
         if self._jsonl is not None:
             self._jsonl.close()
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: Optional[str]):
-    """A ``torch.profiler`` trace of the enclosed work, written to
-    ``log_dir/trace_<pid>_<time>.json`` on exit; nothing if no dir is given."""
-    if not log_dir:
-        yield None
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"trace_{os.getpid()}_{time.strftime('%Y%m%d_%H%M%S')}.json"))
