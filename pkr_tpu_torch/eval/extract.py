@@ -22,6 +22,7 @@ import torch
 
 from pkr_tpu_torch.data.device_cache import dequantize
 from pkr_tpu_torch.device import DeviceLike, as_device_tensor, resolve_device
+from pkr_tpu_torch.models.layout import use_device_layout
 from pkr_tpu_torch.utils import trace
 
 SEG_SEP = "##"
@@ -30,9 +31,9 @@ SEG_SEP = "##"
 def make_embed_fn(model, device: DeviceLike = None
                   ) -> Callable[..., torch.Tensor]:
     """Returns embed(feats (B, F, T), mask (B, T), pct=None) → (B, emb_dim)
-    on the device.  The model is moved to ``device``; every call puts it in
-    eval mode, so a train step run in between does not leave BatchNorm on
-    batch statistics.
+    on the device.  The model is moved to ``device`` and takes its trunk
+    layout (``models/layout.py``); every call puts it in eval mode, so a
+    train step run in between does not leave BatchNorm on batch statistics.
 
     Feature batches cross to the card in the trunk's compute type: for a
     bf16 model the first conv casts its input to bf16 anyway, so the cast
@@ -42,7 +43,7 @@ def make_embed_fn(model, device: DeviceLike = None
     decodes to the column's p0, not 0.0), so the stem sees the float path's
     zero padding."""
     dev = resolve_device(device)
-    model.to(dev)
+    use_device_layout(model.to(dev))
     xfer = model.dtype
 
     @trace.spanned("extract.embed")

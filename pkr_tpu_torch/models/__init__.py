@@ -1,6 +1,6 @@
 """Model zoo of the port: the ResNet trunks (BasicBlock, SE, Bottleneck and
-thin), the DenseNet trunks, and the speaker-embedding model with
-softmax/AAM heads."""
+thin), the DenseNet trunks, the speaker-embedding model with softmax/AAM
+heads, and the trunks' memory layout per device."""
 
 from pkr_tpu_torch.models.densenet import (
     DENSENETS,
@@ -12,6 +12,7 @@ from pkr_tpu_torch.models.densenet import (
     densenet169,
     densenet201,
 )
+from pkr_tpu_torch.models.layout import memory_format_for, use_device_layout
 from pkr_tpu_torch.models.resnet import (
     BatchNorm,
     ResNet,
@@ -52,4 +53,6 @@ __all__ = [
     "densenet169",
     "densenet201",
     "SpeakerModel",
+    "memory_format_for",
+    "use_device_layout",
 ]

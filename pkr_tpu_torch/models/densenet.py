@@ -1,4 +1,4 @@
-"""DenseNet-BC trunks for speaker embeddings, NCHW.
+"""DenseNet-BC trunks for speaker embeddings.
 
 Port of ``pkr_tpu/models/densenet.py`` (the reference's
 scripts/densenet.py: torchvision's DenseNet-BC with a 1-channel 7x7
@@ -19,6 +19,10 @@ them ``stem``, ``BatchNorm_0``, ``block{i}_layer{j}/{BatchNorm,Conv}_{0,1}``,
 ``transition{i}/{BatchNorm,Conv}_0`` and ``final_norm``; ``convert`` and the
 checkpoint warm start map one onto the other.
 
+Maps are (B, C, F', T') in the trunk's ``memory_format`` (channels_last on
+a CUDA device, contiguous on the CPU; ``models/layout.py``), as the
+ResNets' are: the concatenations and the pools keep it.
+
 Masks: with a (B, T) frame mask each dense layer zeroes the padded time
 columns before its 3x3 conv, the only op that mixes across time, so a
 bucketed batch embeds as its rows do at their exact lengths.
@@ -32,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pkr_tpu_torch.models.resnet import BatchNorm, _conv, zero_time_pad
+from pkr_tpu_torch.models.resnet import (BatchNorm, _conv, count_layout, stem_input,
+                                        zero_time_pad)
 
 
 class DenseLayer(nn.Module):
@@ -74,6 +79,7 @@ class DenseNet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.block_config = tuple(block_config)
+        self.memory_format = torch.contiguous_format  # models/layout.py sets it
         feats = nn.Module()
         feats.conv0 = _conv(1, num_init_features, 7, 2, generator)
         feats.norm0 = BatchNorm(num_init_features)
@@ -105,10 +111,10 @@ class DenseNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, F, T) [+ (B, T) mask] → (B, C, T')."""
-        if x.ndim == 3:
-            x = x[:, None]
         f = self.features
-        x = torch.relu(f.norm0(f.conv0(x)))
+        x = f.conv0(stem_input(x, self.memory_format))
+        count_layout(x)
+        x = torch.relu(f.norm0(x))
         n_valid = None
         if mask is not None:  # the stem is ceil-div-2 on the time axis
             n_valid = (torch.sum(mask.to(torch.int64), dim=-1) + 1) // 2

@@ -1,4 +1,4 @@
-"""ResNet trunks for speaker embeddings (r-vector geometry), NCHW.
+"""ResNet trunks for speaker embeddings (r-vector geometry).
 
 Port of ``pkr_tpu/models/resnet.py``:
 - stem: 3x3 stride-1 conv to 32 channels + BN + ReLU (no max-pool),
@@ -12,9 +12,16 @@ Port of ``pkr_tpu/models/resnet.py``:
 - Kaiming-normal(fan_out) conv init (drawn from ``generator`` when one is
   given), BN γ=1 β=0, eps 1e-5.
 
-Layout: the input (B, F, T) becomes (B, 1, H=F, W=T).  Every conv pads
-(k-1)//2 on each side, which is the reference's "SAME" at stride 1 and its
-explicit symmetric padding at stride 2.
+Shapes: the input (B, F, T) becomes (B, 1, H=F, W=T), and every map is
+(B, C, F', T').  Every conv pads (k-1)//2 on each side, which is the
+reference's "SAME" at stride 1 and its explicit symmetric padding at
+stride 2.  Memory layout: a trunk's ``memory_format``, which
+``models/layout.py`` sets from the device (channels_last on a CUDA device,
+contiguous on the CPU), is the layout of its stem's input and so of every
+map after it: convolutions, BatchNorm, ReLU, the residual adds, the
+padding masks and the SE gate keep their input's layout.  While the tracer
+is on (``utils/trace.py``) the counter ``trunk.channels_last`` counts the
+calls whose stem emitted a channels_last map.
 
 Module names follow the reference's state dict (``conv1``/``bn1`` stem,
 ``layerL.J.conv1/bn1/conv2/bn2[/conv3/bn3]/downsample.{0,1}``, the SE gate's
@@ -45,6 +52,8 @@ import torch
 import torch.nn.functional as F
 import torch.distributed as dist
 from torch import nn
+
+from pkr_tpu_torch.utils import trace
 
 
 def _conv(cin: int, cout: int, k: int, stride: int,
@@ -175,8 +184,25 @@ def set_batch_norm_group(model: nn.Module, group) -> None:
             mod.group = group
 
 
+def stem_input(x: torch.Tensor, memory_format: torch.memory_format) -> torch.Tensor:
+    """A trunk's input (B, F, T) → the (B, 1, F, T) map in ``memory_format``,
+    as a view: one channel holds the same bytes in either layout, and only
+    the strides tell cuDNN which one it is.  A 4-D input is converted."""
+    if x.ndim == 3:
+        x = (x.unsqueeze(3).permute(0, 3, 1, 2) if memory_format == torch.channels_last
+             else x[:, None])
+    return x.contiguous(memory_format=memory_format)
+
+
+def count_layout(x: torch.Tensor) -> None:
+    """Count a trunk call under ``trunk.channels_last``: 1 where its stem
+    emitted ``x`` channels_last, else 0 (nothing while the tracer is off)."""
+    trace.count("trunk.channels_last", int(x.is_contiguous(memory_format=torch.channels_last)))
+
+
 def zero_time_pad(x: torch.Tensor, n_valid: Optional[torch.Tensor]) -> torch.Tensor:
-    """Zero the padded time columns of an NCHW map (n_valid per batch row)."""
+    """Zero the padded time columns of a (B, C, F, T) map (n_valid per
+    batch row), in the map's layout."""
     if n_valid is None:
         return x
     keep = torch.arange(x.shape[3], device=x.device)[None, :] < n_valid[:, None]
@@ -293,6 +319,7 @@ class ResNet(nn.Module):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.base_width = base_width
+        self.memory_format = torch.contiguous_format  # models/layout.py sets it
         self.conv1 = _conv(1, base_width, stem_kernel, 1, generator)
         self.bn1 = BatchNorm(base_width)
         cin = base_width
@@ -320,12 +347,12 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, F, T) [+ (B, T) mask] → (B, C, F/8, T/8)."""
-        if x.ndim == 3:
-            x = x[:, None]
         n_valid = None
         if mask is not None:
             n_valid = torch.sum(mask.to(torch.int64), dim=-1)
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = self.conv1(stem_input(x, self.memory_format))
+        count_layout(x)
+        x = torch.relu(self.bn1(x))
         x = zero_time_pad(x, n_valid)
         for i in range(len(self.stage_sizes)):
             for block in getattr(self, f"layer{i + 1}"):

@@ -14,7 +14,10 @@ Port of ``pkr_tpu/models/speaker_model.py`` (reference NeuralSpeakerModel):
 
 The weights are drawn on the host, from ``generator`` (a CPU
 ``torch.Generator``) when one is given, so a seed gives the same weights on
-every device.  ``dtype`` is the trunk's compute type: bf16 runs the convolutions under
+every device.  The trunk takes its device's memory layout
+(``models/layout.py``: channels_last on a CUDA device, contiguous on the
+CPU) here and wherever a step or the extractor puts the model on a device.
+``dtype`` is the trunk's compute type: bf16 runs the convolutions under
 autocast (the speed path on the card), float32 runs them in full f32 with
 TF32 off (the parity path).  Pooling and everything after it stay f32.
 
@@ -35,6 +38,7 @@ from torch import nn
 from pkr_tpu_torch.device import DeviceLike, full_f32, resolve_device
 from pkr_tpu_torch.models import resnet as _resnet
 from pkr_tpu_torch.models.densenet import DENSENETS
+from pkr_tpu_torch.models.layout import use_device_layout
 from pkr_tpu_torch.ops.aam import aam_logits
 from pkr_tpu_torch.ops.stats_pool import flatten_pooled, stats_pool
 
@@ -90,7 +94,7 @@ class SpeakerModel(nn.Module):
             self.last = _resnet._dense(emb_dim, spk_num, generator)
         else:
             self.last = AAMWeight(spk_num, emb_dim, generator)
-        self.to(resolve_device(device))
+        use_device_layout(self.to(resolve_device(device)))
         self.eval()
 
     def _trunk(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:

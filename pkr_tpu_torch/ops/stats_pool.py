@@ -1,10 +1,12 @@
 """Mask-aware statistics pooling over the time axis.
 
-Port of ``pkr_tpu/ops/stats_pool.py`` in the port's NCHW layout: the trunk
-emits (B, C, F', T') and pooling reduces T'.  'mean+std' uses the unbiased
-variance (torch.var_mean's default, as the reference model) and
-sqrt(max(var, 1e-10)); the mask keeps padded time columns out of both
-statistics, so a bucketed batch pools exactly as exact-length runs do.
+Port of ``pkr_tpu/ops/stats_pool.py``: the trunk emits (B, C, F', T') and
+pooling reduces T'.  The map may be in either memory layout (channels_last
+on a CUDA device, ``models/layout.py``): the reductions read it as it
+lies.  'mean+std' uses the unbiased variance (torch.var_mean's default, as
+the reference model) and sqrt(max(var, 1e-10)); the mask keeps padded
+time columns out of both statistics, so a bucketed batch pools exactly as
+exact-length runs do.
 """
 
 from __future__ import annotations

@@ -214,8 +214,9 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
                        which: str = "latest") -> Optional[TrainState]:
     """Restore 'latest', 'best', or an explicit epoch number into ``model``
     (strictly, by name) and return its ``TrainState`` on the model's
-    device; None where the target does not exist.  ``state``, when given,
-    is the template whose momentum names the checkpoint must have.  The
+    device, each momentum in its parameter's layout; None where the target
+    does not exist.  ``state``, when given, is the template whose momentum
+    names the checkpoint must have.  The
     checkpoint's AAM weight is whole: restore into a whole model, then
     ``parallel.shard_params(model, mesh, state)`` cuts both to a rank's
     rows."""
@@ -228,8 +229,10 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
         raise ValueError(f"{target}: its momentum does not match the train state's "
                          "parameters")
     model.load_state_dict(ck["model"], strict=True)
-    dev = next(model.parameters()).device
-    return TrainState({k: v.to(dev) for k, v in ck["momentum"].items()},
+    params = dict(model.named_parameters())
+    dev = next(iter(params.values())).device
+    # each momentum in its parameter's device and layout (models/layout.py)
+    return TrainState({k: torch.empty_like(params[k]).copy_(v) for k, v in ck["momentum"].items()},
                       torch.tensor(ck["step"], dtype=torch.int64, device=dev),
                       int(ck["epoch"]), float(ck["best_acc1"]))
 

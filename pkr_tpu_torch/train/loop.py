@@ -35,9 +35,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from pkr_tpu_torch.device import DeviceLike, as_device_tensor, full_f32, resolve_device
+from pkr_tpu_torch.models.layout import use_device_layout
 from pkr_tpu_torch.models.resnet import commit_batch_stats, set_batch_norm_group
 from pkr_tpu_torch.ops.flash_aam import flash_aam_loss_acc, make_flash_aam_sharded
 from pkr_tpu_torch.parallel.mesh import weight_is_sharded
@@ -85,11 +85,20 @@ def _data_sum(t: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _reduce_grads(grads, mesh):
-    """The gradients summed over the data group in one flat all_reduce."""
+    """The gradients summed over the data group in one flat all_reduce.
+    Each is flattened in the order its elements lie in memory and comes
+    back with its own strides, so a channels_last gradient stays in its
+    parameter's and its momentum's layout (``models/layout.py``)."""
     if not grads or mesh is None or mesh.data_group is None:
         return grads
-    flat = _data_sum(_flatten_dense_tensors(grads), mesh)
-    return list(_unflatten_dense_tensors(flat, grads))
+    grads = [g if g.is_contiguous() or g.is_contiguous(memory_format=torch.channels_last)
+             else g.contiguous() for g in grads]  # dense: one block of memory each
+    flat = _data_sum(torch.cat([g.as_strided((g.numel(),), (1,)) for g in grads]), mesh)
+    out, offset = [], 0
+    for g in grads:
+        out.append(flat[offset:offset + g.numel()].as_strided(g.shape, g.stride()))
+        offset += g.numel()
+    return out
 
 
 def make_train_step(model, momentum: float = 0.9, weight_decay: float = 5e-4,
@@ -97,7 +106,9 @@ def make_train_step(model, momentum: float = 0.9, weight_decay: float = 5e-4,
                     ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns train_step(state, feats (B, F, T), labels (B,), lr) →
     (state, {'loss', 'acc1', 'acc5'}), the metrics as f32 scalars on the
-    device.  The model is moved to ``device``; ``state`` must be on it too.
+    device.  The model is moved to ``device`` and takes its trunk layout
+    (``models/layout.py``); ``state`` must be on it too, each momentum in
+    its parameter's layout (``create_train_state``, ``TrainState.to``).
 
     flash_aam (AAM and AAM-v1 heads) routes the head through the flash
     loss (ops/flash_aam.py): the (B, n_spk) logits never exist, top-1 comes
@@ -120,7 +131,7 @@ def make_train_step(model, momentum: float = 0.9, weight_decay: float = 5e-4,
     ``step.bn_commit`` inside."""
     _check_flash(model, flash_aam)
     dev = resolve_device(device)
-    model.to(dev)
+    use_device_layout(model.to(dev))
     names, params = zip(*model.named_parameters())
     n_data = 1 if mesh is None else mesh.n_data
     if mesh is not None:
@@ -173,14 +184,15 @@ def make_eval_step(model, flash_aam: bool = False, device: DeviceLike = None, me
     flash_aam routes the loss through the flash head (ops/flash_aam.py): the
     (B, n_spk) logits never exist, top-1 comes from the kernel's online max
     and top-5 from its online target-rank count.  The model is moved to
-    ``device``; every call puts it in eval mode.
+    ``device`` and takes its trunk layout (``models/layout.py``); every
+    call puts it in eval mode.
 
     mesh: ``feats`` and ``labels`` are this rank's share of a global batch,
     and the sums are the global batch's (every rank of the data group must
     call it for the same number of batches)."""
     _check_flash(model, flash_aam)
     dev = resolve_device(device)
-    model.to(dev)
+    use_device_layout(model.to(dev))
     n_data = 1 if mesh is None else mesh.n_data
     flash_fn = _flash_head(model, mesh) if flash_aam else None
 

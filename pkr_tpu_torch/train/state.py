@@ -27,6 +27,8 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from pkr_tpu_torch.models import layout
+
 
 def cosine_epoch_lr(lr0: float, epochs: int, lr_final: float = 0.0
                     ) -> Callable[[int], float]:
@@ -47,13 +49,19 @@ class TrainState:
     best_acc1: float = 0.0
 
     def to(self, device) -> "TrainState":
+        """The state on ``device``, a convolution's (4-D) momentum in the
+        trunk layout of that device (``models/layout.py``), as the
+        convolution's weight is there."""
+        fmt = layout.memory_format_for(device)
         return dataclasses.replace(
-            self, momentum={k: v.to(device) for k, v in self.momentum.items()},
+            self, momentum={k: v.to(device, memory_format=fmt) if v.ndim == 4 else v.to(device)
+                            for k, v in self.momentum.items()},
             step=self.step.to(device))
 
 
 def create_train_state(model: torch.nn.Module) -> TrainState:
-    """Zero momentum for every parameter of ``model``, on its device."""
+    """Zero momentum for every parameter of ``model``, on its device and in
+    its layout."""
     params = dict(model.named_parameters())
     dev = next(iter(params.values())).device
     return TrainState({k: torch.zeros_like(p) for k, p in params.items()},

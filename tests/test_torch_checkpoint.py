@@ -5,7 +5,9 @@
   bare-epoch marker, a missing target, and a failed save re-raised.
 - A pkr_tpu TrainState after two steps, carried over with
   convert.train_state_from_flax, saved and restored by the port: one more
-  step in each package agrees within tests/test_torch_train.py's bounds.
+  step in each package agrees within tests/test_torch_train.py's bounds,
+  also where the saving or the loading model has the card's channels_last
+  trunk (forced on the CPU).
 - The warm starts against pkr_tpu's: from a checkpoint (softmax → AAM and
   AAM-v1, AAM → AAM at the same and at another speaker count, AAM →
   softmax) through load_pretrained and pkr_tpu's load_pretrained_variables,
@@ -33,6 +35,7 @@ from pkr_tpu_torch.train import (create_train_state, import_torch_checkpoint,
                                  load_pretrained, restore_checkpoint, save_checkpoint,
                                  wait_for_checkpoints)
 
+from test_torch_layout import channels_last_on_cpu
 from test_torch_train import (F, assert_metrics_match, assert_state_matches, batches,
                               make_pair, port_from, run_jax, run_port)
 from test_torch_zoo import jax_train_state
@@ -115,20 +118,37 @@ def test_failed_save_is_reraised(tmp_path):
     assert (path / "ckpt_0" / "state.pt").exists()  # the data itself committed
 
 
-@pytest.mark.parametrize("flash", [False, True])
-def test_pkr_tpu_state_round_trip_then_one_step(tmp_path, flash):
+def _layout(channels_last):
+    return channels_last_on_cpu() if channels_last else contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("flash,saved_cl,loaded_cl", [
+    pytest.param(False, False, False, id="False"),
+    pytest.param(True, False, False, id="True"),
+    pytest.param(False, True, False, id="False-saved_channels_last"),
+    pytest.param(False, False, True, id="False-loaded_channels_last")])
+def test_pkr_tpu_state_round_trip_then_one_step(tmp_path, flash, saved_cl, loaded_cl):
+    """Also across the trunk's layouts (the card's channels_last, forced on
+    the CPU): a checkpoint saved from one loads into the other, its momentum
+    in the loading model's strides."""
     fm, jstate, _, _ = make_pair("AAM-v1", seed=3)
     jstate, _ = run_jax(fm, jstate, batches(2, seed=21), flash)
     jstate = jstate.replace(epoch=jstate.epoch + 1, best_acc1=jstate.best_acc1 + 0.5)
-    tm, tstate = port_from(jstate, "AAM-v1")
+    with _layout(saved_cl):
+        tm, tstate = port_from(jstate, "AAM-v1")
+        tstate = tstate.to("cpu")
+    assert (tm.res.memory_format == torch.channels_last) == saved_cl
     save_checkpoint(str(tmp_path), tm, tstate, sync=True)
-    fresh = SpeakerModel(12, F, loss="AAM-v1", trunk="tiny_resnet", dtype=torch.float32,
-                         device="cpu")
-    restored = restore_checkpoint(str(tmp_path), fresh, create_train_state(fresh))
-    assert (int(restored.step), restored.epoch, restored.best_acc1) == (2, 1, 0.5)
-    data = batches(1, seed=22)
-    jstate, jm = run_jax(fm, jstate, data, flash)
-    restored, tmm = run_port(fresh, restored, data, flash)
+    with _layout(loaded_cl):
+        fresh = SpeakerModel(12, F, loss="AAM-v1", trunk="tiny_resnet", dtype=torch.float32,
+                             device="cpu")
+        restored = restore_checkpoint(str(tmp_path), fresh, create_train_state(fresh))
+        assert all(restored.momentum[k].stride() == p.stride()
+                   for k, p in fresh.named_parameters())
+        assert (int(restored.step), restored.epoch, restored.best_acc1) == (2, 1, 0.5)
+        data = batches(1, seed=22)
+        jstate, jm = run_jax(fm, jstate, data, flash)
+        restored, tmm = run_port(fresh, restored, data, flash)
     assert_metrics_match(jm, tmm)
     assert_state_matches(jstate, fresh, restored)
 

@@ -373,3 +373,110 @@ def test_flash_grads_match_dense_on_card():
     for got, ref in ((ef, ed), (wf, wd)):
         torch.testing.assert_close(got, ref, rtol=2e-3, atol=1e-6)
         assert _row_rel_err(got, ref) <= 1e-3
+
+
+def _r34_steps(dev, sd, x, y, contiguous, n_steps=1):
+    """A bf16 ResNet-34 AAM model from ``sd`` on the card, in the card's
+    channels_last layout or (``contiguous``) in the CPU's, and its state
+    after ``n_steps`` train steps on (x, y); the strides of each parameter,
+    its gradient and its momentum as the update received them."""
+    from pkr_tpu_torch.models import SpeakerModel, layout
+    from pkr_tpu_torch.train import create_train_state, loop, make_train_step
+
+    orig_fmt, orig_sgd = layout.memory_format_for, loop.sgd_step
+    strides = []
+
+    def spy(params, grads, bufs, *args, **kwargs):
+        strides.append([(p.stride(), g.stride(), b.stride())
+                        for p, g, b in zip(params, grads, bufs)])
+        return orig_sgd(params, grads, bufs, *args, **kwargs)
+
+    if contiguous:
+        layout.memory_format_for = lambda device: torch.contiguous_format
+    loop.sgd_step = spy
+    try:
+        model = SpeakerModel(7325, 40, loss="AAM", trunk="resnet34", device=dev)
+        model.load_state_dict(sd)
+        step = make_train_step(model, device=dev)
+        state = create_train_state(model)
+        losses = []
+        for _ in range(n_steps):
+            state, met = step(state, x, y, 0.1)
+            losses.append(float(met["loss"]))
+    finally:
+        layout.memory_format_for, loop.sgd_step = orig_fmt, orig_sgd
+    return model, state, step, losses, strides
+
+
+@pytest.mark.gpu
+def test_resnet34_step_channels_last_matches_contiguous():
+    """The trunk's channels_last layout on the card against a contiguous
+    copy of the same model: one bf16 ResNet-34 train step at B = 32 (dense
+    AAM head, 7325 speakers) gives the same loss within 1 % and gradients
+    (the momentum after one step) within portbench's bf16 limits: the
+    median leaf's norm gap within 2.5 % (``grad_med``), the worst leaf's
+    outside BatchNorm within 40 % (``grad_worst``); every parameter, its
+    gradient and its momentum share strides, the trunk's maps are
+    channels_last (the counter ``trunk.channels_last``), and a profiled
+    step runs cuDNN's layout transposes (``nchwToNhwc``/``nhwcToNchw``,
+    which the contiguous copy runs on every convolution pass) only in the
+    stem's backward, whose input has one channel: at most two a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pkr_tpu_torch.models import BatchNorm, SpeakerModel
+    from pkr_tpu_torch.utils import trace
+
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    sd = SpeakerModel(7325, 40, loss="AAM", trunk="resnet34", device="cpu",
+                      generator=g).state_dict()
+    x = torch.randn((32, 40, 200), generator=g).to(dev)
+    y = torch.randint(0, 7325, (32,), generator=g).to(dev)
+    cl, cl_state, cl_step, cl_loss, cl_strides = _r34_steps(dev, sd, x, y, False)
+    nc, nc_state, nc_step, nc_loss, nc_strides = _r34_steps(dev, sd, x, y, True)
+    assert cl.res.memory_format == torch.channels_last
+    assert nc.res.memory_format == torch.contiguous_format
+    assert cl.res.layer1[0].conv1.weight.is_contiguous(memory_format=torch.channels_last)
+    assert nc.res.layer1[0].conv1.weight.is_contiguous()
+    assert abs(cl_loss[0] - nc_loss[0]) <= 0.01 * abs(nc_loss[0])
+    # portbench's gap of norms: each leaf's against the larger of its own
+    # and the median leaf's norm, leaves under 1e-3 of the median left out
+    ref = {k: float(v.norm()) for k, v in nc_state.momentum.items()}
+    med = float(np.median(list(ref.values())))
+    gaps = {k: abs(float(cl_state.momentum[k].norm()) - r) / max(r, med)
+            for k, r in ref.items() if r >= 1e-3 * med}
+    assert float(np.median(list(gaps.values()))) <= 0.025, gaps
+    bn = {f"{n}.{p}" for n, m in nc.named_modules() if isinstance(m, BatchNorm)
+          for p in ("weight", "bias")}
+    assert max(g for k, g in gaps.items() if k not in bn) <= 0.4, gaps
+    for strides in cl_strides + nc_strides:
+        assert all(p == gr == b for p, gr, b in strides)
+
+    def transposes(step, state):
+        """cuDNN's layout transposes a step: (by a convolution with a
+        one-channel input or weight: the stem's, any other)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            for _ in range(2):
+                state, _ = step(state, x, y, 0.1)
+            torch.cuda.synchronize()
+        assert any(e.device_type == DeviceType.CUDA for e in prof.events()), \
+            "the profiler saw no device activity"
+        stem = other = 0
+        for e in prof.events():
+            n = sum(("nchwToNhwc" in k.name or "nhwcToNchw" in k.name)
+                    for k in getattr(e, "kernels", []))
+            if n and any(len(s) == 4 and s[1] == 1 for s in e.input_shapes):
+                stem += n
+            else:
+                other += n
+        return stem / 2, other / 2
+
+    trace.reset()
+    stem, other = transposes(cl_step, cl_state)
+    assert other == 0 and stem <= 2, (stem, other)
+    summary = trace.summary()
+    assert summary["counters"]["trunk.channels_last"] == summary["spans"]["step.forward"]["n"] == 2
+    assert sum(transposes(nc_step, nc_state)) > 10  # the NCHW copy transposes each pass
+    trace.reset()
